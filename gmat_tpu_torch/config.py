@@ -1,0 +1,32 @@
+"""Device and numeric policy for the PyTorch port of gmat-tpu.
+
+The statistical path (GRM, REML, score pieces, exact pair tests) runs in
+float64 end to end, like the JAX reference on the CPU: Hopper has native
+FP64, so the TPU's mixed-precision inverse (`gmat_tpu/core/linalg.py::
+mixed_inv_psd`) has no counterpart here.
+
+The effect screen runs in float32 on a hand-written CUDA kernel whose
+FMA is full float32.  TF32 is switched off for every float32 matrix
+product and convolution in the process, so that a plain float32 product
+(the kernel's PyTorch twin, the oracles in the tests) keeps float32
+precision too.
+
+Every entry point takes a `device`; `None` means `DEFAULT_DEVICE`, which
+is CUDA.  Nothing picks the CPU on its own: the tests pass
+`device="cpu"` themselves.
+"""
+from __future__ import annotations
+
+import torch
+
+DEFAULT_DEVICE = torch.device("cuda")
+EXACT_DTYPE = torch.float64
+SCREEN_DTYPE = torch.float32
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as a torch.device, `DEFAULT_DEVICE` when None."""
+    return DEFAULT_DEVICE if device is None else torch.device(device)

@@ -1,0 +1,76 @@
+"""Genomic relationship matrices (additive / dominance).
+
+Counterpart of `gmat_tpu/grm/grm.py`: K = M Mᵀ / scale as one float64 Gram
+product (`torch.matmul`, as the JAX package leaves it to XLA), diagonal
+inflated by (1 + small_val), written in the reference's file formats.
+"""
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from gmat_tpu_torch.config import EXACT_DTYPE, resolve_device
+from gmat_tpu_torch.core.coding import additive_code, dominance_code
+from gmat_tpu_torch.io.bed import Bed, impute_geno
+from gmat_tpu_torch.io.grm_io import write_grm
+
+logger = logging.getLogger(__name__)
+
+
+def _gram(mat, scale, small_val):
+    kin = (mat @ mat.T) / scale
+    kin.diagonal().mul_(1.0 + small_val)
+    return kin
+
+
+def additive_grm(geno, small_val=0.001):
+    """K_a = M Mᵀ / sum(2p(1-p)) with diagonal inflated by (1+small_val)."""
+    mat, _, scale = additive_code(geno)
+    return _gram(mat, scale, small_val)
+
+
+def dominance_grm(geno, small_val=0.001):
+    """K_d = D Dᵀ / sum(s(1-s)) with diagonal inflated by (1+small_val)."""
+    mat, _, scale = dominance_code(geno)
+    return _gram(mat, scale, small_val)
+
+
+def _run_grm(bed_prefix, kind, inv, small_val, out_fmt, impute_seed, device):
+    dev = resolve_device(device)
+    bed = Bed(bed_prefix)
+    geno = bed.read()
+    if np.any(np.isnan(geno)):
+        logger.info("Missing genotypes are imputed with random genotypes (seed=%d).",
+                    impute_seed)
+        geno = impute_geno(geno, seed=impute_seed)
+    logger.info("There are %d individuals and %d SNPs.", *geno.shape)
+    fn = additive_grm if kind == "add" else dominance_grm
+    suffix, inv_suffix = ((".agrm", ".agiv") if kind == "add"
+                          else (".dgrm_as", ".dgiv_as"))
+    kin_d = fn(torch.as_tensor(geno, dtype=EXACT_DTYPE, device=dev), small_val)
+    kin = kin_d.cpu().numpy()
+    ids = np.array(bed.fam["iid"])
+    write_grm(kin, ids, bed_prefix + suffix, out_fmt)
+    kin_inv = None
+    if inv:
+        kin_inv = torch.linalg.inv(kin_d).cpu().numpy()
+        write_grm(kin_inv, ids, bed_prefix + inv_suffix, out_fmt)
+    return kin, kin_inv
+
+
+def agmat(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
+          out_fmt: str = "mat", impute_seed: int = 0, device=None):
+    """Additive GRM (and optional inverse); writes `<prefix>.agrm*`.
+    Returns (kin, kin_inv) as host arrays."""
+    return _run_grm(bed_prefix, "add", inv, small_val, out_fmt, impute_seed,
+                    device)
+
+
+def dgmat_as(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
+             out_fmt: str = "mat", impute_seed: int = 0, device=None):
+    """Dominance GRM (and optional inverse); writes `<prefix>.dgrm_as*`.
+    Returns (kin, kin_inv) as host arrays."""
+    return _run_grm(bed_prefix, "dom", inv, small_val, out_fmt, impute_seed,
+                    device)
