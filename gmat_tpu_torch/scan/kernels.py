@@ -1,6 +1,6 @@
-"""Epistasis effect screen: the Hopper kernel, its plain twin, the driver.
+"""The Hopper kernels of the port, their plain twins and their drivers.
 
-The screen keeps the pairs (i, j), j > i, j < m, whose effect
+The effect screen keeps the pairs (i, j), j > i, j < m, whose effect
 S[i, j] = Σ_k A[k, i]·py[k]·A[k, j] passes |S| > cut, for A the (n, m)
 float32 coded genotype panel.  It replaces the two Pallas kernels of
 `gmat_tpu/scan/kernels.py`:
@@ -15,11 +15,19 @@ float32 coded genotype panel.  It replaces the two Pallas kernels of
 - `screen_hits` drives both and sorts the hits by (i, j) on the device — the
   counterpart of `pallas_screen`.
 
+The exact scan (`exact_hits`, kernel `gmat_exact_scan`, `csrc/exact.cu`)
+tests every (anchor, partner) pair of an anchor list in float64 —
+eff = eᵀpy, var = eᵀPe, chi = eff²/var for e = m0[:, a] ⊙ m1[:, j] — and
+keeps chi > crit under the triangular or rectangular mask: the counterpart
+of `_exact_kernel_factory` / `pallas_exact_hits`.
+
 Each wrapper takes its plain PyTorch version (`screen_tile_counts_ref`,
-`screen_extract_ref`) for a tensor on the CPU; for a CUDA tensor it launches
-the kernel or raises.  `screen_hits_ref` is the plain version of the whole
-screen.  The kernel is built from `csrc/screen.cu` by nvcc at first use, into
-`build/gmat_tpu_torch/`, and loaded through ctypes.
+`screen_extract_ref`, `exact_hits_ref`) for a tensor on the CPU; for a CUDA
+tensor it launches the kernel or raises.  `screen_hits_ref` is the plain
+version of the whole screen.  The kernels are built from `csrc/*.cu` at
+first use (one nvcc process per source, all started together, then one
+link) into one library under `build/gmat_tpu_torch/`, loaded through
+ctypes.
 """
 from __future__ import annotations
 
@@ -32,15 +40,18 @@ from pathlib import Path
 
 import torch
 
-TILE = 128  # the kernel's tile edge; checked against the library at load
+TILE = 128  # the screen's tile edge; checked against the library at load
+EXACT_TILE = 128  # partners per exact-scan block; checked likewise
+EXACT_CAPACITY = 1 << 20  # first hit buffer of a thresholded exact scan
+_REF_BLOCK_ELEMS = 1 << 25  # elements of E per step of `exact_hits_ref`
 
 #: kernel launches by this process, by kernel
-LAUNCHES = {"screen_count": 0, "screen_extract": 0}
+LAUNCHES = {"screen_count": 0, "screen_extract": 0, "exact_scan": 0}
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "screen.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gmat_tpu_torch"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 
@@ -53,23 +64,46 @@ def _nvcc() -> str:
     return str(Path(home) / "bin" / "nvcc")
 
 
+def compile_sources(srcs, out: Path) -> str:
+    """Build the sources `srcs` into the shared library `out`: one nvcc per
+    source, all started together, then one link.  Returns the compilers'
+    output; raises with it when a step fails."""
+    tag = f"{out.name}.{os.getpid()}"
+    objs = [out.parent / f"{p.stem}.{tag}.o" for p in srcs]
+    procs = [subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(o),
+                               str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(srcs, objs)]
+    logs = [f"== {p.name}\n{proc.communicate()[0]}"
+            for p, proc in zip(srcs, procs)]
+    link = None
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run([_nvcc(), *_NVCC_FLAGS[:2], "-shared", "-o",
+                               str(out), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
+    return "".join(logs)
+
+
 def build_library() -> Path:
-    """Compile `csrc/screen.cu` into a shared library named by the hash of
-    its source and flags (a no-op when that library exists).  The compiler's
-    output, with ptxas's register and shared-memory report, goes to the
-    `.log` file beside it."""
-    src = _SRC.read_bytes()
-    digest = hashlib.sha256(src + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"libgmat_screen_{digest[:16]}.so"
+    """Compile every `csrc/*.cu` into one shared library named by the hash
+    of the sources and flags (a no-op when that library exists), by
+    `compile_sources`.  The compilers' output, with ptxas's register and
+    shared-memory report, goes to the `.log` file beside it."""
+    srcs = sorted(_CSRC.glob("*.cu"))
+    digest = hashlib.sha256(b"".join(
+        [p.name.encode() + p.read_bytes() for p in srcs]
+        + [" ".join(_NVCC_FLAGS).encode()])).hexdigest()
+    out = _BUILD_DIR / f"libgmat_kernels_{digest[:16]}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
+    out.with_suffix(".log").write_text(compile_sources(srcs, tmp))
     os.replace(tmp, out)
     return out
 
@@ -78,8 +112,9 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build_library()))
-        vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                             ctypes.c_float)
+        vp, i32, i64, f32, f64 = (ctypes.c_void_p, ctypes.c_int,
+                                  ctypes.c_int64, ctypes.c_float,
+                                  ctypes.c_double)
         lib.gmat_screen_tile_edge.restype = i32
         lib.gmat_screen_tile_edge.argtypes = []
         lib.gmat_screen_count.restype = i32
@@ -88,9 +123,18 @@ def _library():
         lib.gmat_screen_extract.restype = i32
         lib.gmat_screen_extract.argtypes = [vp, vp, i32, i64, i32, f32, vp,
                                             i32, vp, vp, vp, i32, vp, i32, vp]
+        lib.gmat_exact_tile.restype = i32
+        lib.gmat_exact_tile.argtypes = []
+        lib.gmat_exact_scan.restype = i32
+        lib.gmat_exact_scan.argtypes = [vp, i64, vp, i64, i32, vp, vp, i32,
+                                        vp, i32, f64, i32, i32, vp, vp, vp,
+                                        vp, vp, i32, vp, i32, vp]
         edge = lib.gmat_screen_tile_edge()
         if edge != TILE:
             raise RuntimeError(f"screen library tile edge {edge} != {TILE}")
+        edge = lib.gmat_exact_tile()
+        if edge != EXACT_TILE:
+            raise RuntimeError(f"exact-scan tile {edge} != {EXACT_TILE}")
         _lib = lib
     return _lib
 
@@ -259,3 +303,156 @@ def screen_hits(mat, py, cut, m):
     i, j = i.to(torch.int64), j.to(torch.int64)
     order = torch.argsort(i * m + j)
     return i[order], j[order], eff[order]
+
+
+# the exact scan ---------------------------------------------------------------
+
+_MASKS = ("tri", "rect")
+
+
+def _check_exact(mat0, mat1, py, pvp, anchors, mask):
+    if mask not in _MASKS:
+        raise ValueError(f"mask {mask!r}: want one of {_MASKS}")
+    if any(t.dtype != torch.float64 for t in (mat0, mat1, py, pvp)):
+        raise TypeError("the exact scan takes float64 mat0, mat1, py and pvp")
+    if anchors.dtype not in (torch.int32, torch.int64) or anchors.dim() != 1:
+        raise TypeError("anchors: want a 1-d int32 or int64 tensor")
+    n = mat0.shape[0] if mat0.dim() == 2 else -1
+    if (mat1.dim() != 2 or mat1.shape[0] != n or tuple(py.shape) != (n,)
+            or tuple(pvp.shape) != (n, n)):
+        raise ValueError(
+            f"shapes {tuple(mat0.shape)} / {tuple(mat1.shape)} / "
+            f"{tuple(py.shape)} / {tuple(pvp.shape)}: want mat0 (n, m0), "
+            "mat1 (n, m1), py (n,) and pvp (n, n)")
+    if any(t.device != mat0.device for t in (mat1, py, pvp, anchors)):
+        raise ValueError("the exact scan's tensors lie on different devices")
+    if not all(t.is_contiguous() for t in (mat0, mat1, py, pvp)):
+        raise ValueError("the exact scan takes contiguous tensors")
+    if mat0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no exact scan for device {mat0.device}")
+    if len(anchors) and (int(anchors.min()) < 0
+                         or int(anchors.max()) >= mat0.shape[1]):
+        raise ValueError("anchors out of range of mat0's columns")
+
+
+def _partners(anchors, m1, mask):
+    """(count, first partner) of every anchor: j > a for `tri`, every j
+    for `rect`."""
+    if mask == "tri":
+        return (m1 - 1 - anchors).clamp(min=0), anchors + 1
+    return torch.full_like(anchors, m1), torch.zeros_like(anchors)
+
+
+def pairs_per_anchor(anchors, m1, mask):
+    """Number of partners that a scan tests for each of `anchors`, int64."""
+    return _partners(anchors.to(torch.int64), m1, mask)[0]
+
+
+def exact_pair_count(anchors, m1, mask):
+    """Number of (anchor, partner) pairs that a scan of `anchors` tests."""
+    return int(pairs_per_anchor(anchors, m1, mask).sum())
+
+
+def _no_exact_hits(device, dtype):
+    idx = torch.empty(0, dtype=torch.int64, device=device)
+    val = torch.empty(0, dtype=dtype, device=device)
+    return idx, idx.clone(), val, val.clone(), val.clone()
+
+
+def exact_hits_ref(mat0, mat1, py, pvp, anchors, chi_crit, mask,
+                   center=False):
+    """Plain version of `exact_hits`, in the tensors' dtype.
+
+    The pairs are enumerated in the reference's order (anchors in list
+    order, partners ascending) and tested `_REF_BLOCK_ELEMS // n` at a
+    time as `_one_anchor_chunk` of the JAX package tests them:
+    e = m0[:, a] ⊙ m1[:, j], eff = eᵀpy, var = Σ e ⊙ (pvp·e), chi = eff²/var
+    (with `center`, var on e − mean(e)).  Returns (i int64, j int64, eff,
+    var, chi) of the pairs with chi > chi_crit."""
+    dev = mat0.device
+    anchors = anchors.to(device=dev, dtype=torch.int64)
+    count, first = _partners(anchors, mat1.shape[1], mask)
+    ends = torch.cumsum(count, 0)
+    total = int(ends[-1]) if len(ends) else 0
+    step = max(1, _REF_BLOCK_ELEMS // max(mat0.shape[0], 1))
+    outs = []
+    for p0 in range(0, total, step):
+        p = torch.arange(p0, min(p0 + step, total), device=dev)
+        pos = torch.searchsorted(ends, p, right=True)
+        i = anchors[pos]
+        j = p - (ends[pos] - count[pos]) + first[pos]
+        e = mat0[:, i] * mat1[:, j]
+        eff = e.T @ py
+        if center:
+            e = e - e.mean(dim=0)
+        var = torch.sum(e * (pvp @ e), dim=0)
+        chi = eff * eff / var  # 0/0 -> NaN -> never a hit
+        hit = chi > chi_crit
+        outs.append((i[hit], j[hit], eff[hit], var[hit], chi[hit]))
+    if not outs:
+        return _no_exact_hits(dev, mat0.dtype)
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def exact_hits(mat0, mat1, py, pvp, anchors, chi_crit, mask, center=False):
+    """Every pair (a, j) of the anchor list `anchors` (columns of mat0)
+    against the partners j of mat1 (j > a for mask `tri`, every j for
+    `rect`) with chi > chi_crit, in float64: (i int64, j int64, eff, var,
+    chi) on mat0's device, anchors in list order and partners ascending.
+    `pvp` must be symmetric (the kernel reads its rows as its columns).
+
+    `center` takes var on e − mean(e).  Where pvp·1 = 0 (the score pieces
+    of a design with an intercept) that is the same number in exact
+    arithmetic, and it drops the rounding of pvp along 1, which decides var
+    when e is nearly constant.
+
+    A chi_crit below 0 keeps every pair whose chi is not NaN; its hit
+    buffer is the pair count.  Otherwise the buffer starts at
+    `EXACT_CAPACITY` hits and the kernel is launched once more with the
+    exact count when it overflowed."""
+    _check_exact(mat0, mat1, py, pvp, anchors, mask)
+    if mat0.device.type == "cpu":
+        return exact_hits_ref(mat0, mat1, py, pvp, anchors, chi_crit, mask,
+                              center)
+    n, m1 = mat0.shape[0], mat1.shape[1]
+    if m1 > 65535 * EXACT_TILE or len(anchors) >= 2 ** 31:
+        raise ValueError(f"{len(anchors)} anchors x {m1} partners exceed "
+                         "the exact scan's launch grid")
+    total = exact_pair_count(anchors, m1, mask)
+    if total >= 2 ** 31:
+        raise ValueError(f"{total} pairs exceed the int32 hit cursor: "
+                         "split the anchor list")
+    dev = mat0.device
+    if total == 0:
+        return _no_exact_hits(dev, torch.float64)
+    anchors32 = anchors.to(torch.int32).contiguous()
+    cap = total if chi_crit < 0 else min(total, EXACT_CAPACITY)
+    for _ in range(2):
+        out_a = torch.empty(max(cap, 1), dtype=torch.int32, device=dev)
+        out_j = torch.empty_like(out_a)
+        vals = torch.empty((3, max(cap, 1)), dtype=torch.float64, device=dev)
+        state = torch.zeros(2, dtype=torch.int32, device=dev)  # cursor, overflow
+        rc = _library().gmat_exact_scan(
+            mat0.data_ptr(), mat0.shape[1], mat1.data_ptr(), m1, m1,
+            py.data_ptr(), pvp.data_ptr(), n, anchors32.data_ptr(),
+            len(anchors32), float(chi_crit), int(mask == "tri"), int(center),
+            out_a.data_ptr(), out_j.data_ptr(), vals[0].data_ptr(),
+            vals[1].data_ptr(), vals[2].data_ptr(), cap, state.data_ptr(),
+            *_launch_args(mat0))
+        _raise_on(rc, "gmat_exact_scan")
+        LAUNCHES["exact_scan"] += 1
+        cursor, overflow = state.tolist()
+        if overflow != max(cursor - cap, 0):
+            raise RuntimeError(f"exact scan: cursor {cursor}, capacity {cap}, "
+                               f"{overflow} past the buffer")
+        if not overflow:
+            break
+        cap = cursor
+    else:
+        raise RuntimeError("exact scan overflowed a buffer of its own count")
+    pos = out_a[:cursor].to(torch.int64)
+    j = out_j[:cursor].to(torch.int64)
+    order = torch.argsort(pos * m1 + j)
+    i = anchors.to(torch.int64)[pos[order]]
+    eff, var, chi = vals[:, :cursor][:, order]
+    return i, j[order], eff, var, chi

@@ -251,7 +251,8 @@ def test_random_pairs_match_jax(tmp_path, fn):
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, gmat_tpu_torch; "
+    code = ("import sys, gmat_tpu_torch, gmat_tpu_torch.scan.kernels, "
+            "gmat_tpu_torch.scan.pairs, gmat_tpu_torch.scan.single; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'gmat_tpu.')) or m == 'gmat_tpu']; "
             "assert not bad, bad")
