@@ -23,7 +23,10 @@
 7. on the same set, one part of the exhaustive scan's balanced split,
    remma_epiAA_parallel(parallel=[100, 1]) (301 anchors, 3,981,889 pairs),
    held against the plain version and the approx table, and timed beside
-   the plain version and torch.matmul(pvp, E);
+   the plain version and torch.matmul(pvp, E) (the exact-scan kernel's
+   time, rates and share of its bound are printed for the mouse AA table
+   and this part; the build fails the run when the exact-scan kernel's
+   SASS holds no DMMA, FP64 tensor-core, instruction);
 8. remma_add and remma_dom on the same set.
 
 The last line is {"ok": true, "device": {...}}; the line before it names
@@ -67,24 +70,6 @@ def fail(msg):
 def check(cond, msg):
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, reps=3):
-    """Median device time of fn() in ms, by CUDA events, after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return sorted(times)[len(times) // 2]
 
 
 def bound(flop, nbytes, peak):
@@ -145,6 +130,8 @@ def keys_in(keys, sorted_keys):
 def kernel_case(K, name, n, m, seed, target=None, cut=None):
     """One kernel-vs-plain comparison; returns its measurements."""
     import torch
+
+    from gmat_tpu_torch.probe import cuda_ms
 
     mat, py = panel(n, m, seed)
     if cut is None:
@@ -377,29 +364,50 @@ def timed(fn):
     return out, start.elapsed_time(end)
 
 
+def exact_kernel_flop(K, n, m, anchors):
+    """Product FLOP that the exact-scan kernel runs over `anchors` x the
+    partners above them (mask tri): every column of every block that does
+    not return at once, 2·rows·(n − r0) for each row tile of pvp (first
+    row r0) against the tiles on and above the diagonal."""
+    t = K.EXACT_TILE
+    per_col = sum(2 * min(t, n - r0) * (n - r0) for r0 in range(0, n, t))
+    tiles = -(-m // t)
+    blocks = sum(max(tiles - (int(a) + 1) // t, 0) for a in anchors)
+    return float(blocks) * t * per_col
+
+
 def exact_timing(K, mat, pvp, py, anchors, crit, center):
-    """One exact_hits call (kernel and device sort) over `anchors` x the
-    partners above them, timed beside the plain version and
-    torch.matmul(pvp, E), with the least time the card could take."""
+    """exact_hits (kernel and device sort) over `anchors` x the partners
+    above them: the median of 3 calls after a warm-up, beside one call of
+    the plain version and of torch.matmul(pvp, E), with the least time the
+    card could take, the kernel's rates and max|pvp − pvpᵀ|."""
     import torch
+
+    from gmat_tpu_torch.probe import cuda_ms
 
     n, m = mat.shape
     a_t = torch.as_tensor(anchors, device="cuda")
     args = (mat, mat, py, pvp, a_t, crit, "tri", center)
-    got, ms = timed(lambda: K.exact_hits(*args))
+    got = K.exact_hits(*args)
+    ms = cuda_ms(lambda: K.exact_hits(*args))
     want, plain_ms = timed(lambda: K.exact_hits_ref(*args))
     pairs = K.exact_pair_count(a_t, m, "tri")
     # the least FLOP per pair, pvp being symmetric: e and eff (3n), the
     # strict upper triangle u = triu(pvp, 1)·e (n² − n), then
     # var = Σ e ⊙ (diag(pvp) ⊙ e + 2u) (5n)
-    ms_bound, bound_by = bound(pairs * (n * n + 7.0 * n),
-                               8 * (n * m + n * n + n) + 4 * len(anchors)
-                               + 32 * len(got[0]), FP64_PEAK)
+    least = pairs * (n * n + 7.0 * n)
+    done = exact_kernel_flop(K, n, m, anchors)
+    ms_bound, bound_by = bound(least, 8 * (n * m + n * n + n)
+                               + 4 * len(anchors) + 32 * len(got[0]),
+                               FP64_PEAK)
     return got, want, {
         "n": n, "m": m, "anchors": len(anchors), "pairs": pairs,
         "hits": len(got[0]), "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_matmul_ms(mat, mat, pvp, anchors, True),
-        "bound_ms": ms_bound, "bound_by": bound_by}
+        "bound_ms": ms_bound, "bound_by": bound_by,
+        "bound_share": ms_bound / ms, "kernel_flop": done,
+        "tflops_done": done / ms / 1e9, "tflops_least": least / ms / 1e9,
+        "pvp_max_asym": float((pvp - pvp.T).abs().max())}
 
 
 def assert_table(tab, gold, kind, m):
@@ -782,12 +790,19 @@ def main():
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     sys.path.insert(0, str(ROOT))
+    from gmat_tpu_torch.probe import sass_opcodes
     from gmat_tpu_torch.scan import kernels as K
 
     t0 = time.perf_counter()
     lib = K.build_library()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
     print(lib.with_suffix(".log").read_text().strip(), flush=True)
+    dmma = {op: count for fn, ops in sass_opcodes(lib, "DMMA").items()
+            if "exact_scan_kernel" in fn for op, count in ops.items()}
+    print(f"exact_scan_kernel SASS DMMA instructions: {json.dumps(dmma)}",
+          flush=True)
+    check(dmma, "exact_scan_kernel's SASS holds no DMMA (FP64 tensor-core) "
+          "instruction")
 
     phase_s = {}
     t0 = time.perf_counter()

@@ -1,0 +1,279 @@
+"""Probes of the FP64 tensor cores and of the exact-scan kernel on the card.
+
+    python -m gmat_tpu_torch.probe
+
+1. The f64 shapes of `mma.sync` (DMMA): m8n8k4 (sm_80 on) and m16n8k4 /
+   m16n8k8 / m16n8k16 (sm_90 on).  For each, checks the fragment layout that
+   `csrc/exact.cu` assumes (lane (g, t) = (lane / 4, lane % 4); A register
+   i at row g + 8·(i % 2), column t + 4·(i // 2) for 16 rows, column
+   t + 4·i for 8; B register i at row t + 4·i, column g; D register i at
+   row g + 8·(i // 2), column 2t + i % 2) against torch.matmul on one atom,
+   and times its register-resident rate: 8 independent accumulators per
+   warp, 8 warps per block, at 4 blocks per SM and at 1 (the exact-scan
+   kernel's 8 warps per SM).
+2. The exact-scan kernel at the yeast part of chip_smoke.py (n=4168,
+   m=28220, the 301 anchors of part 1 of 100, tri, center; seeded inputs):
+   as built; `m8n8k4`, with each m16n8k8 atom issued as four m8n8k4 DMMAs
+   on the same fragments; and two variants of `csrc/exact.cu` whose
+   results are wrong by design, each without one piece of the work:
+   `no_staging` (after the first slices the ring is not refilled) and
+   `no_product` (no DMMA).
+
+Times are the median of 3 launches after a warm-up (CUDA events).  Prints
+the card's name and power limit, the DMMA opcodes in each shape's SASS, the
+variants' registers and spills, and one JSON line per shape and per
+variant.  Needs a CUDA card and nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import re
+import subprocess
+import sys
+from collections import Counter
+from pathlib import Path
+
+import torch
+
+from gmat_tpu_torch.scan import kernels as K
+from gmat_tpu_torch.scan.pairs import balanced_anchor_split
+
+SHAPES = [(8, 4), (16, 4), (16, 8), (16, 16)]  # (M, K); N = 8
+YEAST = (4168, 28220)
+
+_SOURCE = r"""
+#include <cuda_runtime.h>
+
+template <int M, int K> __device__ void mma(double* d, const double* a, const double* b);
+template <> __device__ __forceinline__ void mma<8, 4>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, {%3}, {%0, %1};\n"
+               : "+d"(d[0]), "+d"(d[1]) : "d"(a[0]), "d"(b[0]));
+}
+template <> __device__ __forceinline__ void mma<16, 4>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 "
+               "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(b[0]));
+}
+template <> __device__ __forceinline__ void mma<16, 8>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+template <> __device__ __forceinline__ void mma<16, 16>(double* d, const double* a, const double* b) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f64.f64.f64.f64 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7, %8, %9, %10, %11}, "
+               "{%12, %13, %14, %15}, {%0, %1, %2, %3};\n"
+               : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+               : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(a[4]), "d"(a[5]),
+                 "d"(a[6]), "d"(a[7]), "d"(b[0]), "d"(b[1]), "d"(b[2]), "d"(b[3]));
+}
+
+template <int M, int K>
+__global__ void check_kernel(const double* a, const double* b, double* d) {
+  const int g = threadIdx.x / 4, t = threadIdx.x % 4;
+  double ra[M * K / 32], rb[K / 4], rd[M / 4];
+  for (int i = 0; i < M * K / 32; ++i)
+    ra[i] = M == 16 ? a[(g + 8 * (i % 2)) * K + t + 4 * (i / 2)] : a[g * K + t + 4 * i];
+  for (int i = 0; i < K / 4; ++i) rb[i] = b[(t + 4 * i) * 8 + g];
+  for (int i = 0; i < M / 4; ++i) rd[i] = 0.0;
+  mma<M, K>(rd, ra, rb);
+  for (int i = 0; i < M / 4; ++i) d[(g + 8 * (i / 2)) * 8 + 2 * t + i % 2] = rd[i];
+}
+
+template <int M, int K>
+__global__ void rate_kernel(const double* seed, double* out, int iters) {
+  double ra[M * K / 32], rb[K / 4], rd[8][M / 4];
+  for (int i = 0; i < M * K / 32; ++i) ra[i] = seed[(threadIdx.x + i) % 64];
+  for (int i = 0; i < K / 4; ++i) rb[i] = seed[(threadIdx.x + 7 * i) % 64];
+  for (int q = 0; q < 8; ++q)
+    for (int i = 0; i < M / 4; ++i) rd[q][i] = 0.0;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) mma<M, K>(rd[q], ra, rb);
+  }
+  double s = 0.0;
+  for (int q = 0; q < 8; ++q)
+    for (int i = 0; i < M / 4; ++i) s += rd[q][i];
+  out[blockIdx.x * blockDim.x + threadIdx.x] = s;
+}
+
+template <int M, int K>
+int run(int check, const double* a, const double* b, double* d, int blocks,
+        int iters, cudaStream_t stream) {
+  if (check) check_kernel<M, K><<<1, 32, 0, stream>>>(a, b, d);
+  else rate_kernel<M, K><<<blocks, 256, 0, stream>>>(a, d, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int dmma_probe(int shape, int check, const double* a, const double* b,
+                          double* d, int blocks, int iters, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (shape) {
+    case 0: return run<8, 4>(check, a, b, d, blocks, iters, s);
+    case 1: return run<16, 4>(check, a, b, d, blocks, iters, s);
+    case 2: return run<16, 8>(check, a, b, d, blocks, iters, s);
+    case 3: return run<16, 16>(check, a, b, d, blocks, iters, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
+
+# variants of K2, as (pattern, replacement) edits of csrc/exact.cu
+_VARIANTS = {
+    "kernel": [],
+    "no_staging": [("    if (it + kStages - 1 < total) {\n      stage_slice",
+                    "    if (false) {\n      stage_slice")],
+    "no_product": [("    multiply_slice(ring", "    if (it < 0) multiply_slice(ring")],
+    # each 16 x 8 x 8 atom as four 8 x 8 x 4 DMMAs on the same fragments:
+    # rows g (d[0], d[1]) and g + 8 (d[2], d[3]), k = t then t + 4
+    "m8n8k4": [(
+        """  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));""",
+        """  for (int h = 0; h < 2; ++h)
+    for (int k = 0; k < 2; ++k)
+      asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 "
+          "{%0, %1}, {%2}, {%3}, {%0, %1};\\n"
+          : "+d"(d[2 * h]), "+d"(d[2 * h + 1]) : "d"(a[2 * k + h]), "d"(b[k]));""")],
+}
+
+
+def cuda_ms(fn, reps=3):
+    """Median device time of fn() in ms, by CUDA events, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[len(times) // 2]
+
+
+def _build(name, source, out_dir):
+    """Compile `source` into out_dir/lib{name}.so; the ptxas lines that
+    report registers and spills."""
+    src = out_dir / f"{name}.cu"
+    src.write_text(source)
+    log = K.compile_sources([src], out_dir / f"lib{name}.so")
+    return [ln.strip() for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def sass_opcodes(lib, prefix):
+    """{function: {opcode: count}} of the opcodes starting with `prefix` in
+    the SASS of the shared library `lib` (cuobjdump beside nvcc)."""
+    tool = Path(K._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    return {fn.split("\n", 1)[0].strip():
+            dict(Counter(re.findall(rf"\b{prefix}\S*", fn)))
+            for fn in sass.split("Function : ")[1:]}
+
+
+def shapes(out_dir):
+    _build("dmma_probe", _SOURCE, out_dir)
+    lib_path = out_dir / "libdmma_probe.so"
+    lib = ctypes.CDLL(str(lib_path))
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.dmma_probe.restype = i32
+    lib.dmma_probe.argtypes = [i32, i32, vp, vp, vp, i32, i32, vp]
+    sass = {"m{}n8k{}".format(*re.findall(r"Li(\d+)E", fn)): sorted(ops)
+            for fn, ops in sass_opcodes(lib_path, "DMMA").items()
+            if "rate_kernel" in fn}
+    print(f"sass {json.dumps(sass)}", flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    seed = torch.rand(64, generator=gen, dtype=torch.float64, device="cuda")
+    out = torch.empty(4 * sms * 256, dtype=torch.float64, device="cuda")
+    for shape, (m, k) in enumerate(SHAPES):
+        a = torch.randn(m, k, generator=gen, dtype=torch.float64, device="cuda")
+        b = torch.randn(k, 8, generator=gen, dtype=torch.float64, device="cuda")
+        d = torch.full((m, 8), float("nan"), dtype=torch.float64, device="cuda")
+        K._raise_on(lib.dmma_probe(shape, 1, a.data_ptr(), b.data_ptr(),
+                                   d.data_ptr(), 1, 0, stream),
+                    "dmma_probe check")
+        err = float((d - a @ b).abs().max())
+        rates = {}
+        for per_sm in (4, 1):
+            blocks = per_sm * sms
+            flop_per_iter = 2.0 * m * 8 * k * 8 * (blocks * 8)
+            iters = int(per_sm * 1e12 / flop_per_iter)
+
+            def launch():
+                K._raise_on(lib.dmma_probe(shape, 0, seed.data_ptr(), 0,
+                                           out.data_ptr(), blocks, iters,
+                                           stream), "dmma_probe rate")
+            rates[f"tflops_{per_sm * 8}_warps_per_sm"] = (
+                flop_per_iter * iters / cuda_ms(launch) / 1e9)
+        print(json.dumps({"shape": f"m{m}n8k{k}", "layout_ok": err < 1e-12,
+                          "max_abs_err": err, **rates}), flush=True)
+
+
+def exact_variants(out_dir):
+    src = (K._CSRC / "exact.cu").read_text()
+    libs = {}
+    for name, subs in _VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: pattern not found once: {old!r}")
+            text = text.replace(old, new)
+        print(f"{name}: {_build(f'exact_{name}', text, out_dir)}", flush=True)
+        lib = ctypes.CDLL(str(out_dir / f"libexact_{name}.so"))
+        lib.gmat_exact_scan.restype = ctypes.c_int
+        lib.gmat_exact_scan.argtypes = K._library().gmat_exact_scan.argtypes
+        libs[name] = lib
+    n, m = YEAST
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    f64 = {"dtype": torch.float64, "device": "cuda"}
+    mat = torch.randint(0, 3, (n, m), generator=gen, device="cuda").double() - 1.0
+    a = torch.randn(n, n, generator=gen, **f64) / n ** 0.5
+    pvp = a @ a.T + torch.eye(n, **f64)
+    pvp = (torch.triu(pvp) + torch.triu(pvp, 1).T).contiguous()
+    del a
+    py = 0.1 * torch.randn(n, generator=gen, **f64)
+    anchors = torch.tensor(balanced_anchor_split(m, 100, 1), dtype=torch.int32,
+                           device="cuda")
+    cap = 1 << 20
+    out_a = torch.empty(cap, dtype=torch.int32, device="cuda")
+    out_j = torch.empty_like(out_a)
+    vals = torch.empty((3, cap), **f64)
+    state = torch.zeros(2, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for name, lib in libs.items():
+        def launch():
+            state.zero_()
+            K._raise_on(lib.gmat_exact_scan(
+                mat.data_ptr(), m, mat.data_ptr(), m, m, py.data_ptr(),
+                pvp.data_ptr(), n, anchors.data_ptr(), len(anchors), 15.0, 1,
+                1, out_a.data_ptr(), out_j.data_ptr(), vals[0].data_ptr(),
+                vals[1].data_ptr(), vals[2].data_ptr(), cap, state.data_ptr(),
+                0, stream), f"exact variant {name}")
+        print(json.dumps({"variant": name, "ms": cuda_ms(launch)}), flush=True)
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("probe: needs a CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    print(smi.stdout.strip(), flush=True)
+    out_dir = K._BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    shapes(out_dir)
+    exact_variants(out_dir)
+
+
+if __name__ == "__main__":
+    main()

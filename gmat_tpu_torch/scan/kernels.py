@@ -19,7 +19,11 @@ The exact scan (`exact_hits`, kernel `gmat_exact_scan`, `csrc/exact.cu`)
 tests every (anchor, partner) pair of an anchor list in float64 —
 eff = eᵀpy, var = eᵀPe, chi = eff²/var for e = m0[:, a] ⊙ m1[:, j] — and
 keeps chi > crit under the triangular or rectangular mask: the counterpart
-of `_exact_kernel_factory` / `pallas_exact_hits`.
+of `gmat_tpu/scan/kernels.py::_exact_kernel_factory` / `pallas_exact_hits`.
+It is bound by FP64 tensor-core operations: the function needs n² + 7n
+FLOP per pair, and the kernel runs n² + 128n of them on the DMMA units
+(`mma.sync` m16n8k8 f64) by reading only the tiles of the symmetric P on or
+above the diagonal, staged through a `cp.async` ring in shared memory.
 
 Each wrapper takes its plain PyTorch version (`screen_tile_counts_ref`,
 `screen_extract_ref`, `exact_hits_ref`) for a tensor on the CPU; for a CUDA

@@ -427,30 +427,54 @@ def _assert_same_hits(got, want, crit, band=1e-9):
     return len(common)
 
 
+_ANCHORS = [250, 3, 0, 17, 299, 120, 298]
+# the edges of the kernel's design: 128-row tiles of pvp walked in slices of
+# 32 rows, 128-partner blocks, 16-byte copies only where rows are aligned
+_KERNEL_CASES = {  # (n, m, mask, quantile at the threshold, center, anchors)
+    "tri_q0.8": (200, 300, "tri", 0.8, False, _ANCHORS),
+    "rect_q0.9": (200, 300, "rect", 0.9, False, _ANCHORS),
+    "tri_keep_all": (200, 300, "tri", None, False, _ANCHORS),
+    "rect_zero_hits": (200, 300, "rect", 1.0, False, _ANCHORS),
+    "odd_n_odd_m_tri": (201, 301, "tri", 0.8, False, _ANCHORS),
+    "odd_n_odd_m_rect_center": (201, 301, "rect", None, True, _ANCHORS),
+    "n_below_one_slice": (11, 300, "tri", None, False, _ANCHORS),
+    "n_below_one_slice_rect_center": (11, 130, "rect", 0.5, True,
+                                      [0, 127, 128, 129]),
+    "n_above_tiles_tri_center": (257, 400, "tri", 0.8, True,
+                                 [0, 126, 127, 128, 255, 256, 383, 384, 398]),
+    "n_above_tile_rect": (129, 300, "rect", None, False,
+                          [0, 127, 128, 255, 256, 299]),
+    "m_below_tile_tri": (200, 100, "tri", None, False, [0, 1, 50, 98]),
+    "m_below_tile_rect_center": (133, 61, "rect", 0.7, True, [60, 0, 31]),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("mask,q", [("tri", 0.8), ("rect", 0.9),
-                                    ("tri", None), ("rect", 1.0)])
-def test_kernel_matches_plain_version(cuda, mask, q):
-    mat0, mat1, py, pvp = _problem(200, 300, 7)
+@pytest.mark.parametrize("case", sorted(_KERNEL_CASES))
+def test_kernel_matches_plain_version(cuda, case):
+    n, m, mask, q, center, anchors = _KERNEL_CASES[case]
+    mat0, mat1, py, pvp = _problem(n, m, 7)
     mat1 = mat0 if mask == "tri" else mat1
     tensors = _t(mat0, mat1, py, pvp, device=cuda)
-    anchors = torch.tensor([250, 3, 0, 17, 299, 120, 298], device=cuda)
+    anchors = torch.tensor(anchors, device=cuda)
     if mask == "tri":
-        anchors = anchors[anchors < 299]
-    full = K.exact_hits_ref(*tensors, anchors, -1.0, mask)
+        anchors = anchors[anchors < m - 1]
+    full = K.exact_hits_ref(*tensors, anchors, -1.0, mask, center)
     crit = {None: -1.0, 1.0: 1e30}.get(q)
     if crit is None:
         crit = _crit_between(full[4].cpu().numpy(), q)
     before = K.LAUNCHES["exact_scan"]
-    got = K.exact_hits(*tensors, anchors, crit, mask)
+    got = K.exact_hits(*tensors, anchors, crit, mask, center)
     torch.cuda.synchronize()
     assert K.LAUNCHES["exact_scan"] == before + 1
-    want = K.exact_hits_ref(*tensors, anchors, crit, mask)
-    n = _assert_same_hits(got, want, crit)
+    want = K.exact_hits_ref(*tensors, anchors, crit, mask, center)
+    common = _assert_same_hits(got, want, crit)
     if q == 1.0:
-        assert n == 0 and len(got[0]) == 0
+        assert common == 0 and len(got[0]) == 0
     else:
-        assert n > 100
+        assert common >= min(100, len(full[0]) // 4)
+    if q is None:
+        assert len(got[0]) == len(full[0])
     with pytest.raises(TypeError):
         K.exact_hits(tensors[0].float(), *tensors[1:], anchors, crit, mask)
 
