@@ -27,7 +27,18 @@
    time, rates and share of its bound are printed for the mouse AA table
    and this part; the build fails the run when the exact-scan kernel's
    SASS holds no DMMA, FP64 tensor-core, instruction);
-8. remma_add and remma_dom on the same set.
+8. remma_add and remma_dom on the same set;
+9. the general screen kernels against their plain versions and the f64
+   bracket: AD at the yeast shape with MAF/het bins and a varied cut table
+   as its two sweeps, a ragged 1001 x 3001 AD screen of an unsorted
+   300-anchor subset with a table, and keep-all on a subset (their times
+   on the `general screen kernels` line);
+10. on the yeast set, remma_epiAD_approx, remma_epiDD_approx,
+   remma_epiAA_maf_approx and remma_epiAD_maf_approx (p_cut=1e-5, 100,000
+   calibration pairs), each with its own launch counts, table checks and
+   stage times, and remma_epiAD_eff_parallel([100, 1]) against
+   remma_epiAD_eff: the part's rows are the full table's rows of its
+   anchors, byte for byte.
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit, and the one before that lists each kernel
@@ -80,14 +91,45 @@ def bound(flop, nbytes, peak):
                                        else "bytes")
 
 
-def tile_pairs(tiles, m, tile):
-    """Pairs i < j < m inside the listed upper-triangle (ti, tj) tiles."""
+def tile_pairs(tiles, m, tile, ids=None):
+    """Pairs j > i, j < m inside the listed (anchor tile, partner tile)
+    tiles, i the anchor's id: ids[position], or the position itself."""
     import torch
 
-    ti, tj = tiles[:, 0].long(), tiles[:, 1].long()
-    rows = torch.clamp(m - ti * tile, max=tile)
-    cols = torch.clamp(m - tj * tile, max=tile)
-    return int(torch.where(ti == tj, rows * (rows - 1) // 2, rows * cols).sum())
+    ta, tb = tiles[:, 0].long(), tiles[:, 1].long()
+    pos = ta[:, None] * tile + torch.arange(tile, device=tiles.device)[None, :]
+    n_a = m if ids is None else len(ids)
+    if ids is None:
+        row = pos
+    else:
+        row = ids.long()[pos.clamp(max=max(n_a - 1, 0))]
+    row = torch.where(pos < n_a, row, torch.full_like(row, m))
+    lo = torch.maximum(tb[:, None] * tile, row + 1)
+    hi = torch.clamp(tb[:, None] * tile + tile, max=m)
+    return int((hi - lo).clamp(min=0).sum())
+
+
+def codes_panel(n, m, seed):
+    """Centered additive and dominance codes of a binomial(2, p) panel,
+    its MAF and heterozygote-frequency bins (int(freq*20), folded), and a
+    py vector, on the card; the codes float32."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    p = 0.05 + 0.9 * torch.rand(m, generator=g, device="cuda")
+    geno = ((torch.rand(n, m, generator=g, device="cuda") < p).float()
+            + (torch.rand(n, m, generator=g, device="cuda") < p).float())
+    het = (geno == 1.0).float()
+    maf = geno.mean(dim=0) / 2
+    maf = torch.where(maf > 0.5, 1 - maf, maf)
+    hf = het.mean(dim=0)
+    hf = torch.where(hf > 0.5, 1 - hf, hf)
+    codes = {"A": (geno - geno.mean(dim=0)).contiguous(),
+             "D": (het - het.mean(dim=0)).contiguous()}
+    bins = {"maf": (maf * 20).int().contiguous(),
+            "het": (hf * 20).int().contiguous()}
+    py = (0.1 * torch.randn(n, generator=g, device="cuda")).contiguous()
+    return codes, bins, py
 
 
 def panel(n, m, seed):
@@ -104,15 +146,16 @@ def panel(n, m, seed):
     return mat, py
 
 
-def cut_for_hits(mat, py, target):
+def cut_for_hits(mat, py, target, b=None):
     """|S| quantile that leaves about `target` of the m(m-1)/2 pairs, from
     the scores of 512 random anchor rows in float64."""
     import torch
 
+    b = mat if b is None else b
     m = mat.shape[1]
     g = torch.Generator(device="cuda").manual_seed(SEED)
     rows = torch.randperm(m, generator=g, device="cuda")[:512]
-    s = ((mat[:, rows].double() * py.double()[:, None]).T @ mat.double()).abs()
+    s = ((mat[:, rows].double() * py.double()[:, None]).T @ b.double()).abs()
     s[torch.arange(len(rows), device="cuda"), rows] = 0.0  # the diagonal
     q = 1.0 - target / (m * (m - 1) / 2)
     return float(torch.quantile(s.flatten()[:1 << 24].float(), q))
@@ -127,21 +170,38 @@ def keys_in(keys, sorted_keys):
     return found, pos
 
 
-def kernel_case(K, name, n, m, seed, target=None, cut=None):
-    """One kernel-vs-plain comparison; returns its measurements."""
+def scaled(cut, factor):
+    """The cut (a float or a CutTable) times `factor`."""
+    return cut * factor if isinstance(cut, float) else cut.scaled(factor)
+
+
+def kernel_case(K, name, mat, py, cut, b=None, anchors=None):
+    """One kernel-vs-plain comparison of the screen of the anchors
+    `anchors` (SNP ids, None for all) of `mat` against the partners of b
+    (mat when None) at `cut` (a float or a CutTable); returns its
+    measurements."""
     import torch
 
     from gmat_tpu_torch.probe import cuda_ms
 
-    mat, py = panel(n, m, seed)
-    if cut is None:
-        cut = cut_for_hits(mat, py, target)
-    mat64, py64 = mat.double(), py.double()
+    n, m = mat.shape[0], (mat if b is None else b).shape[1]
+    a, ids = K.anchor_panel(mat, anchors, m)
+    bb = b if b is not None or ids is None else mat
+    kw = {"b": bb, "ids": ids}
+    a64, b64 = a.double(), None if bb is None else bb.double()
+    py64 = py.double()
+    kw64 = {"b": b64, "ids": ids}
+    hkw = {"b": b, "anchors": anchors}
+    hkw64 = {"b": None if b is None else b64, "anchors": anchors}
+    mat64 = mat.double()
+    # the band around a negative (keep-all) cut opens the other way
+    lo, hi = (1 + BAND, 1 - BAND) if not isinstance(cut, float) or cut > 0 \
+        else (1 - BAND, 1 + BAND)
     # phase 1: counts against the f64 bracket and the plain float32 version
-    counts = K.screen_counts(mat, py, cut, m)
-    plain_counts = K.screen_tile_counts_ref(mat, py, cut, m)
-    core_c = K.screen_tile_counts_ref(mat64, py64, cut * (1 + BAND), m)
-    hull_c = K.screen_tile_counts_ref(mat64, py64, cut * (1 - BAND), m)
+    counts = K.screen_counts(a, py, cut, m, **kw)
+    plain_counts = K.screen_tile_counts_ref(a, py, cut, m, **kw)
+    core_c = K.screen_tile_counts_ref(a64, py64, scaled(cut, lo), m, **kw64)
+    hull_c = K.screen_tile_counts_ref(a64, py64, scaled(cut, hi), m, **kw64)
     check(bool(torch.all(core_c <= counts)) and bool(torch.all(counts <= hull_c)),
           f"{name}: kernel tile counts outside the f64 bracket")
     check(bool(torch.all(core_c <= plain_counts))
@@ -149,57 +209,141 @@ def kernel_case(K, name, n, m, seed, target=None, cut=None):
           f"{name}: plain tile counts outside the f64 bracket")
     count_err = int((counts - plain_counts).abs().max()) if counts.numel() else 0
     # phase 2 + driver: hit set against the f64 bracket, eff against f64
-    i, j, e = K.screen_hits(mat, py, cut, m)
+    i, j, e = K.screen_hits(mat, py, cut, m, **hkw)
     torch.cuda.synchronize()
-    keys = i * m + j
-    check(bool(torch.all(keys[1:] > keys[:-1])), f"{name}: hits not sorted")
-    hi, hj, he = K.screen_hits_ref(mat64, py64, cut * (1 - BAND), m)
-    hull = hi * m + hj
-    found, pos = keys_in(keys, hull)
+    if ids is None:
+        pos = i
+    else:
+        order = torch.argsort(ids.long())
+        pos = order[torch.searchsorted(ids.long()[order], i)]
+    keys = pos * m + j
+    check(bool(torch.all(keys[1:] > keys[:-1])),
+          f"{name}: hits not in anchor-list order")
+    hi_, hj, he = K.screen_hits_ref(mat64, py64, scaled(cut, hi), m, **hkw64)
+    # (i, j) keys of the plain versions, sorted for lookups
+    def ij(ii, jj):
+        return ii * m + jj
+    hull = ij(hi_, hj)
+    hsort, hperm = torch.sort(hull)
+    found, at = keys_in(ij(i, j), hsort)
     check(bool(found.all()), f"{name}: {int((~found).sum())} kernel hits "
           "below the f64 bracket")
-    core = hull[he.abs() > cut * (1 + BAND)]
-    in_k, _ = keys_in(core, keys)
+    ci, cj, _ = K.screen_hits_ref(mat64, py64, scaled(cut, lo), m, **hkw64)
+    got_sorted = torch.sort(ij(i, j)).values
+    in_k, _ = keys_in(ij(ci, cj), got_sorted)
     check(bool(in_k.all()), f"{name}: {int((~in_k).sum())} f64 hits above "
           "the bracket missed")
-    ref = he[pos] if len(keys) else he[:0]
-    rel = float(((e.double() - ref).abs() / ref.abs()).max()) if len(keys) else 0.0
+    ref = he[hperm[at]] if len(keys) else he[:0]
+    # keep-all keeps scores that cancel to about 0, where float32 rounding
+    # is no relative error: there each eff may also miss by the float32
+    # dot product's error bound, n·2^-24·Σ_k |a_k·py_k·b_k|
+    floor = torch.zeros_like(ref)
+    if isinstance(cut, float) and cut < 0 and len(keys):
+        part64 = a64 if b64 is None else b64
+        terms = (a64[:, :len(ids) if ids is not None else m].abs()
+                 * py64.abs()[:, None]).T @ part64.abs()
+        floor = n * 2.0 ** -24 * terms[pos, j] / EFF_RTOL
+    rel = float(((e.double() - ref).abs() / (ref.abs() + floor)).max()) \
+        if len(keys) else 0.0
     check(rel <= EFF_RTOL, f"{name}: eff off the f64 oracle by {rel:.3g}")
     # the plain float32 version: same bracket, eff on the common pairs
-    pi, pj, pe = K.screen_hits_ref(mat, py, cut, m)
-    pfound, _ = keys_in(pi * m + pj, hull)
+    pi, pj, pe = K.screen_hits_ref(mat, py, cut, m, **hkw)
+    pfound, _ = keys_in(ij(pi, pj), hsort)
     check(bool(pfound.all()), f"{name}: plain hits below the f64 bracket")
-    common, cpos = keys_in(keys, pi * m + pj)
-    diff = (e[common] - pe[cpos[common]]).abs()
+    psort, pperm = torch.sort(ij(pi, pj))
+    common, cpos = keys_in(ij(i, j), psort)
+    pe_c = pe[pperm[cpos[common]]]
+    diff = (e[common] - pe_c).abs()
     eff_err = float(diff.max()) if len(diff) else 0.0
-    plain_rel = float((diff / pe[cpos[common]].abs()).max()) if len(diff) else 0.0
+    plain_rel = float((diff / (pe_c.abs() + floor[common])).max()) \
+        if len(diff) else 0.0
     check(plain_rel <= EFF_RTOL,
           f"{name}: eff off the plain version by {plain_rel:.3g} (relative)")
     tiles = torch.nonzero(counts).to(torch.int32)
-    in_bytes = 4 * (n * m + n)
-    count_bound = bound(2.0 * n * (m * (m - 1) // 2),
-                        in_bytes + 4 * counts.numel(), FP32_PEAK)
-    extract_bound = bound(2.0 * n * tile_pairs(tiles, m, K.TILE),
+    n_a = m if ids is None else len(ids)
+    pairs = (m * (m - 1) // 2 if ids is None
+             else int((m - 1 - ids.long()).clamp(min=0).sum()))
+    # each input read once: the panel(s), py, the bins and the table
+    in_bytes = 4 * (n * m + n + (0 if b is None else n * n_a)) + (
+        0 if isinstance(cut, float) else 8 * m + 4 * 111)
+    count_bound = bound(2.0 * n * pairs, in_bytes + 4 * counts.numel(),
+                        FP32_PEAK)
+    extract_bound = bound(2.0 * n * tile_pairs(tiles, m, K.TILE, ids),
                           in_bytes + 8 * len(tiles) + 12 * len(keys),
                           FP32_PEAK)
     out = {
-        "case": name, "n": n, "m": m, "cut": cut, "hits": len(keys),
-        "f64_core": len(core), "f64_hull": len(hull), "hot_tiles": len(tiles),
+        "case": name, "n": n, "m": m, "anchors": n_a,
+        "cut": cut if isinstance(cut, float) else "table", "hits": len(keys),
+        "f64_core": len(ci), "f64_hull": len(hull), "hot_tiles": len(tiles),
+        "pairs": pairs,
         "count_max_abs_err": count_err, "eff_max_abs_err": eff_err,
         "eff_max_rel_err_f64": rel,
         "count_bound_ms": count_bound[0], "count_bound_by": count_bound[1],
         "extract_bound_ms": extract_bound[0],
         "extract_bound_by": extract_bound[1],
-        "count_ms": cuda_ms(lambda: K.screen_counts(mat, py, cut, m)),
-        "plain_count_ms": cuda_ms(lambda: K.screen_tile_counts_ref(mat, py, cut, m)),
-        "extract_ms": cuda_ms(lambda: K.screen_extract(mat, py, cut, m, counts)),
-        "plain_extract_ms": cuda_ms(lambda: K.screen_extract_ref(mat, py, cut, m, tiles)),
-        "screen_ms": cuda_ms(lambda: K.screen_hits(mat, py, cut, m)),
-        "plain_screen_ms": cuda_ms(lambda: K.screen_hits_ref(mat, py, cut, m)),
+        "count_ms": cuda_ms(lambda: K.screen_counts(a, py, cut, m, **kw)),
+        "plain_count_ms": cuda_ms(lambda: K.screen_tile_counts_ref(a, py, cut, m, **kw)),
+        "extract_ms": cuda_ms(lambda: K.screen_extract(a, py, cut, m, counts, **kw)),
+        "plain_extract_ms": cuda_ms(lambda: K.screen_extract_ref(a, py, cut, m, tiles, **kw)),
+        "screen_ms": cuda_ms(lambda: K.screen_hits(mat, py, cut, m, **hkw)),
+        "plain_screen_ms": cuda_ms(lambda: K.screen_hits_ref(mat, py, cut, m, **hkw)),
     }
     print("case " + json.dumps(out), flush=True)
-    del mat, py, mat64, py64
     torch.cuda.empty_cache()
+    return out
+
+
+def flat_case(K, name, n, m, seed, target=None, cut=None):
+    """kernel_case of the identity AA screen of a seeded panel, at `cut` or
+    at the cut that leaves about `target` hits."""
+    import torch
+
+    mat, py = panel(n, m, seed)
+    if cut is None:
+        cut = cut_for_hits(mat, py, target)
+    out = kernel_case(K, name, mat, py, cut)
+    del mat, py
+    torch.cuda.empty_cache()
+    return out
+
+
+def varied_table(K, bins_a, bins_b, base):
+    """A CutTable whose cuts vary by bin pair around `base`."""
+    import torch
+
+    table = base * (0.85 + 0.05 * (torch.arange(111, device="cuda") % 7))
+    return K.CutTable(bins_a, bins_b, table.float().contiguous())
+
+
+def general_cases(K):
+    """The general screen against its plain version and the f64 bracket:
+    AD at the yeast shape with MAF/het bins and a varied table as its two
+    sweeps (A x D, then D x A), a ragged 1001 x 3001 AD screen of an
+    unsorted 300-anchor subset with a table, and keep-all on a subset."""
+    import torch
+
+    out = []
+    codes, bins, py = codes_panel(*YEAST, seed=6)
+    a, d = codes["A"], codes["D"]
+    base = cut_for_hits(a, py, 5e4, b=d)
+    table = varied_table(K, bins["maf"], bins["het"], base)
+    out.append(kernel_case(K, "yeast_AD_maf_sweep1", a, py, table, b=d))
+    out.append(kernel_case(K, "yeast_AD_maf_sweep2", d, py, table, b=a))
+    del codes, a, d
+    torch.cuda.empty_cache()
+    codes, bins, py = codes_panel(1001, 3001, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sub = torch.randperm(3000, generator=gen, device="cuda")[:300]
+    table = varied_table(K, bins["maf"], bins["het"],
+                         cut_for_hits(codes["A"], py, 2e4, b=codes["D"]))
+    out.append(kernel_case(K, "ragged_subset_table", codes["A"], py, table,
+                           b=codes["D"], anchors=sub))
+    out.append(kernel_case(K, "subset_keep_all", codes["A"], py, -999.0,
+                           anchors=sub[:200]))
+    check(out[-1]["hits"] == out[-1]["pairs"], "subset keep-all: "
+          f"{out[-1]['hits']} hits of {out[-1]['pairs']} pairs")
+    check(all(c["hits"] > 1000 for c in out), "a general case found too "
+          "few hits")
     return out
 
 
@@ -666,7 +810,8 @@ def main_path(K, workdir):
     print(f"epiAA pairs within the f64 screen's bracket: core {len(core)}, "
           f"table {len(table)}, hull {len(hull)}", flush=True)
     ctx = {"workdir": workdir, "prefix": prefix, "pheno": pheno,
-           "gmat_lst": gmat_lst, "var_com": var_com, "approx_rows": rows}
+           "gmat_lst": gmat_lst, "var_com": var_com, "approx_rows": rows,
+           "planted": planted}
     return times, stages, launches, ctx
 
 
@@ -744,6 +889,115 @@ def exact_slice(K, ctx):
     return launches, timing, err
 
 
+SCREEN_FAMILY = (  # entry point, screen sweeps per call
+    ("remma_epiAD_approx", 2), ("remma_epiDD_approx", 1),
+    ("remma_epiAA_maf_approx", 1), ("remma_epiAD_maf_approx", 2),
+)
+
+
+def screen_family(K, ctx):
+    """The rest of the screen family on the yeast set, each entry point
+    with the launch counts set to 0 just before it and read just after:
+    the AD/DD approx and the AA/AD maf approx pipelines at p_cut=1e-5 with
+    100,000 calibration pairs (the 7-column table, chi = eff²/var, the
+    planted AxA pairs in the AA maf table), then remma_epiAD_eff against
+    remma_epiAD_eff_parallel([100, 1]) at one var_app: the part's rows are
+    the full table's rows of its anchors, byte for byte.  Returns
+    {entry point: launches} and {entry point: stage times}."""
+    import numpy as np
+    import torch
+    from scipy.stats import chi2
+
+    import gmat_tpu_torch
+    from gmat_tpu_torch.scan import screen as screen_mod
+    from gmat_tpu_torch.scan.pairs import balanced_anchor_split
+
+    args = (ctx["pheno"], ctx["prefix"], ctx["gmat_lst"], ctx["var_com"])
+    m = YEAST[1]
+    launches, stages = {}, {}
+    var_app = None
+    for name, sweeps in SCREEN_FAMILY:
+        out = str(ctx["workdir"] / name)
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        getattr(gmat_tpu_torch, name)(*args, p_cut=1e-5,
+                                      num_random_pair=100000, out_file=out)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[name] = dict(K.LAUNCHES)
+        stages[name] = dict(screen_mod.LAST_APPROX_STAGES, wall_s=wall)
+        check(launches[name] == {"screen_count": sweeps,
+                                 "screen_extract": sweeps, "exact_scan": 0},
+              f"{name}: launches {launches[name]}, want {sweeps} sweeps")
+        with open(out) as f:
+            head = f.readline().split()
+        check(head == ["snp_0", "snp_1", "eff", "var", "chi", "p_app", "p"],
+              f"{name}: header {head}")
+        rows = np.loadtxt(out, skiprows=1, ndmin=2)
+        check(rows.shape[0] > 0 and rows.shape[1] == 7,
+              f"{name}: rows {rows.shape}")
+        check(bool(np.all(np.isfinite(rows))), f"{name}: non-finite values")
+        np.testing.assert_allclose(rows[:, 4], rows[:, 2] ** 2 / rows[:, 3],
+                                   rtol=1e-6, err_msg=name)
+        check(bool(np.all((rows[:, 5:] >= 0) & (rows[:, 5:] <= 1))),
+              f"{name}: p outside [0, 1]")
+        check(bool(np.all(rows[:, 0] != rows[:, 1])), f"{name}: i == j")
+        keys = {(int(a), int(b)) for a, b in rows[:, :2]}
+        if name == "remma_epiAA_maf_approx":
+            planted = ctx["planted"]
+            check(set(planted) <= keys, f"{name}: planted pairs "
+                  f"{sorted(set(planted) - keys)} missing")
+        if name == "remma_epiAD_approx":
+            # the run's var_app, read back from the approx columns
+            var_app = float(np.median(rows[:, 2] ** 2
+                                      / chi2.isf(rows[:, 5], 1)))
+        print(f"{name}: {rows.shape[0]} rows, launches "
+              f"{json.dumps(launches[name])}, stages "
+              f"{json.dumps(stages[name])}", flush=True)
+
+    # the anchor subset: the same arithmetic on a gathered panel
+    full = str(ctx["workdir"] / "epiAD_eff")
+    part = str(ctx["workdir"] / "epiAD_eff_parallel")
+    for name, call in (
+            ("remma_epiAD_eff", lambda: gmat_tpu_torch.remma_epiAD_eff(
+                *args, var_app=var_app, p_cut=1e-5, out_file=full)),
+            ("remma_epiAD_eff_parallel",
+             lambda: gmat_tpu_torch.remma_epiAD_eff_parallel(
+                 *args, parallel=[100, 1], var_app=var_app, p_cut=1e-5,
+                 out_file=part))):
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        stages[name] = {"wall_s": time.perf_counter() - t0}
+        launches[name] = dict(K.LAUNCHES)
+        check(launches[name]["screen_count"] == 2,
+              f"{name}: launches {launches[name]}")
+    anchors = set(balanced_anchor_split(m, 100, 1, triangular=False))
+    with open(full) as f:
+        head = f.readline()
+        lines = f.read().splitlines()
+
+    def anchor_of(line):
+        a, b = map(int, line.split()[:2])
+        return a if a < b else b  # the flipped sweep writes (partner, anchor)
+
+    want = [ln for ln in lines if anchor_of(ln) in anchors]
+    with open(part + ".1") as f:
+        check(f.readline() == head, "epiAD_eff_parallel: header")
+        got = f.read().splitlines()
+    check(len(want) > 0 and got == want, f"epiAD_eff_parallel([100, 1]): "
+          f"{len(got)} rows, the full table has {len(want)} for its anchors")
+    print(f"remma_epiAD_eff: {len(lines)} rows; remma_epiAD_eff_parallel"
+          f"([100, 1]): {len(got)} rows, byte-identical to the full table's "
+          f"rows of its {len(anchors)} anchors; launches "
+          f"{json.dumps({k: launches[k] for k in ('remma_epiAD_eff', 'remma_epiAD_eff_parallel')})}",
+          flush=True)
+    return launches, stages
+
+
 def single_snp(ctx):
     """remma_add and remma_dom on the yeast set (the additive x additive
     variance stands in for the dominance one in remma_dom): the columns,
@@ -807,15 +1061,24 @@ def main():
     phase_s = {}
     t0 = time.perf_counter()
     cases = [
-        kernel_case(K, "yeast", *YEAST, seed=1, target=1e5),
-        kernel_case(K, "ragged", 1001, 3001, seed=2, target=2e4),
-        kernel_case(K, "zero_hits", 1001, 3001, seed=3, cut=1e9),
-        kernel_case(K, "near_keep_all", 1304, 1700, seed=4, target=1.3e6),
+        flat_case(K, "yeast", *YEAST, seed=1, target=1e5),
+        flat_case(K, "ragged", 1001, 3001, seed=2, target=2e4),
+        flat_case(K, "zero_hits", 1001, 3001, seed=3, cut=1e9),
+        flat_case(K, "near_keep_all", 1304, 1700, seed=4, target=1.3e6),
     ]
     check(cases[0]["hits"] > 5e4, "yeast case: too few hits")
     check(cases[2]["hits"] == 0, "zero-hit case found hits")
     check(cases[3]["hits"] > 1e6, "near-keep-all case: too few hits")
     phase_s["screen_kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    general = general_cases(K)
+    cases += general
+    phase_s["general_screen_kernels"] = time.perf_counter() - t0
+    print("general screen kernels " + json.dumps([
+        {k: c[k] for k in ("case", "anchors", "pairs", "hits", "count_ms",
+                           "count_bound_ms", "plain_count_ms", "extract_ms",
+                           "extract_bound_ms", "plain_extract_ms",
+                           "screen_ms")} for c in general]), flush=True)
 
     t0 = time.perf_counter()
     exact_err = exact_phase(K)
@@ -837,7 +1100,12 @@ def main():
         t0 = time.perf_counter()
         times.update(single_snp(ctx))
         phase_s["single_snp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        family_launches, family_stages = screen_family(K, ctx)
+        phase_s["screen_family"] = time.perf_counter() - t0
     times["remma_epiAA_parallel"] = part["wall_s"]
+    times.update({k: v["wall_s"] for k, v in family_stages.items()})
+    print(f"screen-family launches {json.dumps(family_launches)}", flush=True)
     print(f"main-path step times (s): {json.dumps(times)}", flush=True)
     print(f"phase times (s): {json.dumps(phase_s)}", flush=True)
 

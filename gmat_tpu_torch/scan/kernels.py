@@ -1,19 +1,29 @@
 """The Hopper kernels of the port, their plain twins and their drivers.
 
-The effect screen keeps the pairs (i, j), j > i, j < m, whose effect
-S[i, j] = Σ_k A[k, i]·py[k]·A[k, j] passes |S| > cut, for A the (n, m)
-float32 coded genotype panel.  It replaces the two Pallas kernels of
-`gmat_tpu/scan/kernels.py`:
+The effect screen keeps the pairs (i, j), j > i, j < m, of an anchor i and
+a partner j whose effect S[i, j] = Σ_k A[k, i]·py[k]·B[k, j] passes
+|S| > cut, for A and B (n, m) float32 coded genotype panels (B = A for the
+AA and DD screens), a list of anchors (every SNP by default) and a flat
+cut or a per-pair `CutTable` (the MAF/het-binned screens).  It replaces the
+two Pallas kernels of `gmat_tpu/scan/kernels.py`, and serves the general
+screen that the JAX package runs on its XLA engine (`screen.py::
+_fused_visit`):
 
-- `screen_counts`  (kernel `gmat_screen_count`, `csrc/screen.cu`) counts the
-  hits of every upper-triangle TILE x TILE tile — the counterpart of
-  `_count_kernel` / `pallas_screen_counts`;
-- `screen_extract` (kernel `gmat_screen_extract`) recomputes the tiles with a
-  nonzero count and appends their hits to buffers sized exactly from the
-  counts — the counterpart of `_screen_extract_factory` /
+- `screen_counts`  (kernel `gmat_screen_count[_general]`, `csrc/screen.cu`)
+  counts the hits of every (anchor tile, partner tile) TILE x TILE tile
+  that can hold a pair j > i — the counterpart of `_count_kernel` /
+  `pallas_screen_counts`;
+- `screen_extract` (kernel `gmat_screen_extract[_general]`) recomputes the
+  tiles with a nonzero count and appends their hits to buffers sized
+  exactly from the counts — the counterpart of `_screen_extract_factory` /
   `pallas_extract_hot_tiles`;
-- `screen_hits` drives both and sorts the hits by (i, j) on the device — the
-  counterpart of `pallas_screen`.
+- `screen_hits` gathers an anchor subset into one panel, drives both and
+  sorts the hits by (position in the anchor list, j) on the device — the
+  counterpart of `pallas_screen` and of `screen.py::_run_screen_impl`.
+
+The identity screen (every SNP an anchor of one panel, one flat cut) runs
+the kernels' identity instantiation over the upper-triangle tiles; every
+other screen runs their general instantiation over `screen_worklist`.
 
 The exact scan (`exact_hits`, kernel `gmat_exact_scan`, `csrc/exact.cu`)
 tests every (anchor, partner) pair of an anchor list in float64 —
@@ -40,6 +50,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -127,6 +138,14 @@ def _library():
         lib.gmat_screen_extract.restype = i32
         lib.gmat_screen_extract.argtypes = [vp, vp, i32, i64, i32, f32, vp,
                                             i32, vp, vp, vp, i32, vp, i32, vp]
+        general = [vp, i64, i32, vp, i64, vp, i32, i32, vp, i32, vp, vp, vp,
+                   f32]
+        lib.gmat_screen_count_general.restype = i32
+        lib.gmat_screen_count_general.argtypes = general + [vp, i32, vp, i32,
+                                                            i32, vp]
+        lib.gmat_screen_extract_general.restype = i32
+        lib.gmat_screen_extract_general.argtypes = general + [
+            vp, i32, vp, vp, vp, i32, vp, i32, vp]
         lib.gmat_exact_tile.restype = i32
         lib.gmat_exact_tile.argtypes = []
         lib.gmat_exact_scan.restype = i32
@@ -143,21 +162,73 @@ def _library():
     return _lib
 
 
-def _check(mat, py, m):
+@dataclass(frozen=True)
+class CutTable:
+    """The per-pair cut of the binned screens: pair (i, j) is a hit when
+    |S| > table[bins_a[i]*10 + bins_b[j]], i the anchor's SNP id and j the
+    partner's (the reference's `eff_cut[bin_i*10 + bin_j]`).  bins_a and
+    bins_b are int32 (m,) in [0, 10]; table is float32 (111,)."""
+
+    bins_a: torch.Tensor
+    bins_b: torch.Tensor
+    table: torch.Tensor
+
+    def scaled(self, factor):
+        """The same bins with every cut times `factor`."""
+        return CutTable(self.bins_a, self.bins_b, self.table * factor)
+
+    def at(self, rows, cols):
+        """Cuts of the pairs rows[:, None] x cols[None, :] (SNP ids)."""
+        return self.table[self.bins_a[rows].long()[:, None] * 10
+                          + self.bins_b[cols].long()[None, :]]
+
+
+def _check_panel(t, n, name):
+    if t.dtype != torch.float32:
+        raise TypeError(f"the screen takes a float32 {name}")
+    if t.dim() != 2 or t.shape[0] != n:
+        raise ValueError(f"{name} {tuple(t.shape)}: want ({n}, ld)")
+
+
+def _check(mat, py, m, cut, b, ids):
     if mat.dtype != torch.float32 or py.dtype != torch.float32:
         raise TypeError("the screen takes float32 mat and py")
     if mat.dim() != 2 or tuple(py.shape) != (mat.shape[0],):
         raise ValueError(f"shapes {tuple(mat.shape)} / {tuple(py.shape)}: "
                          "want mat (n, ld) and py (n,)")
-    if not 0 <= m <= mat.shape[1] or m >= 2 ** 31 - TILE:
-        raise ValueError(f"m={m} out of range for a panel of "
-                         f"{mat.shape[1]} columns")
-    if mat.device != py.device:
-        raise ValueError("mat and py lie on different devices")
+    width = mat.shape[1] if b is None else b.shape[1]
+    if not 0 <= m <= width or m >= 2 ** 31 - TILE:
+        raise ValueError(f"m={m} out of range for a panel of {width} columns")
     if not (mat.is_contiguous() and py.is_contiguous()):
         raise ValueError("the screen takes contiguous tensors")
     if mat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no screen for device {mat.device}")
+    others = [py]
+    if b is not None:
+        _check_panel(b, mat.shape[0], "partner panel b")
+        others.append(b)
+    n_a = m if ids is None else len(ids)
+    if mat.shape[1] < n_a:
+        raise ValueError(f"{n_a} anchor positions but {mat.shape[1]} columns")
+    if ids is not None:
+        if ids.dtype != torch.int32 or ids.dim() != 1:
+            raise TypeError("ids: want a 1-d int32 tensor")
+        if len(ids) and (int(ids.min()) < 0 or int(ids.max()) >= m):
+            raise ValueError("anchor ids out of range of the partners")
+        others.append(ids)
+    if isinstance(cut, CutTable):
+        for bins in (cut.bins_a, cut.bins_b):
+            if bins.dtype != torch.int32 or tuple(bins.shape) != (m,):
+                raise TypeError(f"bins: want int32 ({m},)")
+            if m and (int(bins.min()) < 0 or int(bins.max()) > 10):
+                raise ValueError("bins: want values in [0, 10]")
+        if cut.table.dtype != torch.float32 or tuple(cut.table.shape) != (111,):
+            raise TypeError("table: want float32 (111,)")
+        others += [cut.bins_a, cut.bins_b, cut.table]
+    if any(t.device != mat.device for t in others):
+        raise ValueError("the screen's tensors lie on different devices")
+    if not all(t.is_contiguous() for t in others):
+        raise ValueError("the screen takes contiguous tensors")
 
 
 def _n_tiles(m, tile=TILE):
@@ -173,70 +244,150 @@ def _raise_on(rc, name):
         raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
+def _n_anchors(m, ids):
+    """Anchor positions of a screen: len(ids), or m for the identity."""
+    return m if ids is None else len(ids)
+
+
+def _row_ids(ids, p0, p1, device):
+    """SNP ids of the anchor positions p0..p1-1."""
+    if ids is None:
+        return torch.arange(p0, p1, device=device)
+    return ids[p0:p1].long()
+
+
+def screen_worklist(ids, m, tile=TILE):
+    """(n_work, 2) int32 (anchor tile, partner tile) pairs of a screen
+    whose anchor position p has SNP id ids[p]: every partner tile that can
+    hold a pair j > i, i.e. not wholly at or left of the anchor tile's
+    smallest id (the JAX package's `_tile_worklist` rule)."""
+    dev = ids.device
+    t_a, t_b = _n_tiles(len(ids), tile), _n_tiles(m, tile)
+    padded = torch.nn.functional.pad(ids.long(), (0, t_a * tile - len(ids)),
+                                     value=m)
+    first = ((padded.view(t_a, tile).amin(dim=1) + 1) // tile).clamp(max=t_b)
+    per = t_b - first
+    ta = torch.repeat_interleave(torch.arange(t_a, device=dev), per)
+    start = torch.cumsum(per, 0) - per
+    tb = torch.arange(len(ta), device=dev) - start[ta] + first[ta]
+    return torch.stack([ta, tb], dim=1).to(torch.int32).contiguous()
+
+
 # plain PyTorch versions ------------------------------------------------------
 
-def _score_rows(mat, py, r0, r1, m):
-    """S[r0:r1, r0:m] as one matrix product in mat's dtype."""
-    return (mat[:, r0:r1] * py[:, None]).T @ mat[:, r0:m]
+def _score_rows(a, b, py, p0, p1, c0, m):
+    """S[p0:p1, c0:m] = (a[:, p0:p1] ⊙ py)ᵀ b[:, c0:m], one matrix product
+    in a's dtype."""
+    return (a[:, p0:p1] * py[:, None]).T @ b[:, c0:m]
 
 
-def _row_hits(s, r0, cut):
-    """Hit mask of S[r0:r1, r0:m]: |S| > cut on the strict upper triangle."""
-    rows = torch.arange(r0, r0 + s.shape[0], device=s.device)[:, None]
-    cols = torch.arange(r0, r0 + s.shape[1], device=s.device)[None, :]
-    return (torch.abs(s) > cut) & (cols > rows)
+def _row_hits(s, rows, c0, cut):
+    """Hit mask of S[rows, c0:c0+w]: |S| above the pair's cut and j > i,
+    for `rows` the anchors' SNP ids."""
+    cols = torch.arange(c0, c0 + s.shape[1], device=s.device)
+    thr = cut.at(rows, cols) if isinstance(cut, CutTable) else cut
+    return (torch.abs(s) > thr) & (cols[None, :] > rows[:, None])
 
 
-def screen_tile_counts_ref(mat, py, cut, m, tile=TILE):
+def _first_tile(rows, tile):
+    """First partner tile that can hold a pair j > min(rows)."""
+    return (int(rows.min()) + 1) // tile
+
+
+def screen_tile_counts_ref(mat, py, cut, m, tile=TILE, *, b=None, ids=None):
     """Plain version of `screen_counts` at tile edge `tile`: the
-    (T, T) int32 hit-count grid, computed one row of tiles at a time."""
-    n_t = _n_tiles(m, tile)
-    counts = torch.zeros((n_t, n_t), dtype=torch.int32, device=mat.device)
-    for ti in range(n_t):
-        r0, r1 = ti * tile, min((ti + 1) * tile, m)
-        hit = _row_hits(_score_rows(mat, py, r0, r1, m), r0, cut)
-        pad = (n_t - ti) * tile - hit.shape[1]
+    (ceil(n_a / tile), ceil(m / tile)) int32 hit-count grid, computed one
+    row of tiles at a time."""
+    b = mat if b is None else b
+    n_a = _n_anchors(m, ids)
+    t_a, t_b = _n_tiles(n_a, tile), _n_tiles(m, tile)
+    counts = torch.zeros((t_a, t_b), dtype=torch.int32, device=mat.device)
+    for ta in range(t_a):
+        p0, p1 = ta * tile, min((ta + 1) * tile, n_a)
+        rows = _row_ids(ids, p0, p1, mat.device)
+        tb0 = _first_tile(rows, tile)
+        if tb0 >= t_b:
+            continue
+        hit = _row_hits(_score_rows(mat, b, py, p0, p1, tb0 * tile, m), rows,
+                        tb0 * tile, cut)
+        pad = (t_b - tb0) * tile - hit.shape[1]
         hit = torch.nn.functional.pad(hit, (0, pad))
-        counts[ti, ti:] = hit.reshape(hit.shape[0], n_t - ti, tile).sum(
+        counts[ta, tb0:] = hit.reshape(hit.shape[0], t_b - tb0, tile).sum(
             dim=(0, 2)).to(torch.int32)
     return counts
 
 
-def screen_extract_ref(mat, py, cut, m, tiles):
-    """Plain version of `screen_extract`: the hits of the listed (ti, tj)
-    tiles as (i int32, j int32, eff), in tile-list order."""
-    out_i, out_j, out_e = [], [], []
+def screen_extract_ref(mat, py, cut, m, tiles, *, b=None, ids=None):
+    """Plain version of `screen_extract`: the hits of the listed (anchor
+    tile, partner tile) tiles as (position int32, j int32, eff), in
+    tile-list order."""
+    b = mat if b is None else b
+    n_a = _n_anchors(m, ids)
+    out_p, out_j, out_e = [], [], []
     row = None
-    for ti, tj in tiles.cpu().tolist():
-        if row is None or row[0] != ti:  # one row of tiles at a time
-            r0, r1 = ti * TILE, min((ti + 1) * TILE, m)
-            s = _score_rows(mat, py, r0, r1, m)
-            row = (ti, s, _row_hits(s, r0, cut))
-        _, s, hit = row
-        c0 = tj * TILE - ti * TILE
-        ii, jj = torch.nonzero(hit[:, c0:c0 + TILE], as_tuple=True)
-        out_i.append(ii + ti * TILE)
-        out_j.append(jj + tj * TILE)
-        out_e.append(s[ii, jj + c0])
-    if not out_i:
+    for ta, tb in tiles.cpu().tolist():
+        if row is None or row[0] != ta:  # one row of tiles at a time
+            p0, p1 = ta * TILE, min((ta + 1) * TILE, n_a)
+            rows = _row_ids(ids, p0, p1, mat.device)
+            c0 = _first_tile(rows, TILE) * TILE
+            s = _score_rows(mat, b, py, p0, p1, c0, m)
+            row = (ta, c0, s, _row_hits(s, rows, c0, cut))
+        _, c0, s, hit = row
+        off = tb * TILE - c0
+        pp, jj = torch.nonzero(hit[:, off:off + TILE], as_tuple=True)
+        out_p.append(pp + ta * TILE)
+        out_j.append(jj + tb * TILE)
+        out_e.append(s[pp, jj + off])
+    if not out_p:
         return _empty_hits(mat.device, mat.dtype)
-    return (torch.cat(out_i).to(torch.int32), torch.cat(out_j).to(torch.int32),
+    return (torch.cat(out_p).to(torch.int32), torch.cat(out_j).to(torch.int32),
             torch.cat(out_e))
 
 
-def screen_hits_ref(mat, py, cut, m, block_elems=1 << 26):
+def anchor_panel(mat, anchors, m):
+    """(panel, ids) of a screen of the anchors `anchors` (SNP ids, columns
+    of mat; None for every SNP): mat itself and None when the list is
+    0, 1, ..., m-2 or m-1 (the pairs of anchor m-1 are none), else the
+    anchors' columns gathered by one index_select into a contiguous panel
+    of ceil(|anchors| / TILE)·TILE columns (the last anchor repeated) and
+    the ids as int32."""
+    if anchors is None:
+        return mat, None
+    anchors = anchors.to(device=mat.device, dtype=torch.int64)
+    k = len(anchors)
+    if k >= m - 1 and k <= m and bool(torch.equal(
+            anchors, torch.arange(k, device=mat.device))):
+        return mat, None
+    if k == 0:
+        return mat[:, :0].contiguous(), anchors.to(torch.int32)
+    pad = _n_tiles(k) * TILE - k
+    idx = torch.cat([anchors, anchors[-1:].expand(pad)])
+    return mat.index_select(1, idx), anchors.to(torch.int32)
+
+
+def screen_hits_ref(mat, py, cut, m, block_elems=1 << 26, *, b=None,
+                    anchors=None):
     """Plain version of the whole screen, in mat's dtype: (i int64, j int64,
-    eff) sorted by (i, j), computed in anchor-row blocks of at most
-    `block_elems` scores so that the (m, m) matrix is never held."""
+    eff) of every pair of an anchor i of `anchors` (SNP ids, columns of
+    mat; None for every SNP) and a partner j of b (mat when None), j > i,
+    j < m, above `cut` (a float or a `CutTable`), in anchor-list order and
+    partners ascending.  Computed in anchor-row blocks of at most
+    `block_elems` scores, so that the (m, m) matrix is never held."""
+    a, ids = anchor_panel(mat, anchors, m)
+    b = mat if b is None else b
     out_i, out_j, out_e = [], [], []
-    rows = max(1, block_elems // max(m, 1))
-    for r0 in range(0, max(m - 1, 0), rows):
-        r1 = min(r0 + rows, m)
-        s = _score_rows(mat, py, r0, r1, m)
-        ii, jj = torch.nonzero(_row_hits(s, r0, cut), as_tuple=True)
-        out_i.append(ii + r0)
-        out_j.append(jj + r0)
-        out_e.append(s[ii, jj])
+    step = max(1, block_elems // max(m, 1))
+    for p0 in range(0, _n_anchors(m, ids), step):
+        p1 = min(p0 + step, _n_anchors(m, ids))
+        rows = _row_ids(ids, p0, p1, mat.device)
+        c0 = int(rows.min()) + 1
+        if c0 >= m:
+            continue
+        s = _score_rows(a, b, py, p0, p1, c0, m)
+        pp, jj = torch.nonzero(_row_hits(s, rows, c0, cut), as_tuple=True)
+        out_i.append(rows[pp])
+        out_j.append(jj + c0)
+        out_e.append(s[pp, jj])
     if not out_i:
         return _empty_hits(mat.device, mat.dtype, torch.int64)
     return torch.cat(out_i), torch.cat(out_j), torch.cat(out_e)
@@ -250,45 +401,85 @@ def _empty_hits(device, dtype, index_dtype=torch.int32):
 
 # kernel wrappers -------------------------------------------------------------
 
-def screen_counts(mat, py, cut, m):
-    """(T, T) int32 grid of per-tile hit counts, T = ceil(m / TILE); cells
-    below the diagonal are zero."""
-    _check(mat, py, m)
+def _is_identity(cut, b, ids):
+    return not isinstance(cut, CutTable) and b is None and ids is None
+
+
+def _general_args(mat, py, cut, m, b, ids):
+    """The leading arguments of the general entry points."""
+    b = mat if b is None else b
+    if isinstance(cut, CutTable):
+        bins = (cut.bins_a.data_ptr(), cut.bins_b.data_ptr(),
+                cut.table.data_ptr(), 0.0)
+    else:
+        bins = (None, None, None, float(cut))
+    return (mat.data_ptr(), mat.shape[1], mat.shape[1], b.data_ptr(),
+            b.shape[1], py.data_ptr(), mat.shape[0], m,
+            None if ids is None else ids.data_ptr(), _n_anchors(m, ids),
+            *bins)
+
+
+def screen_counts(mat, py, cut, m, *, b=None, ids=None):
+    """(T_a, T_b) int32 grid of per-tile hit counts, T_a = ceil(n_a / TILE)
+    anchor tiles (n_a = len(ids), or m), T_b = ceil(m / TILE) partner
+    tiles; a tile with no pair j > i counts zero.
+
+    Column p of `mat` is anchor position p with SNP id ids[p] (p itself
+    when ids is None); b is the partner panel (mat when None); cut is a
+    float or a `CutTable`.  The identity screen (no b, ids or table) runs
+    over the upper-triangle tiles, any other over `screen_worklist`."""
+    _check(mat, py, m, cut, b, ids)
     if mat.device.type == "cpu":
-        return screen_tile_counts_ref(mat, py, cut, m)
-    n_t = _n_tiles(m)
-    counts = torch.zeros((n_t, n_t), dtype=torch.int32, device=mat.device)
-    rc = _library().gmat_screen_count(
-        mat.data_ptr(), py.data_ptr(), mat.shape[0], mat.shape[1], m,
-        float(cut), counts.data_ptr(), n_t, *_launch_args(mat))
+        return screen_tile_counts_ref(mat, py, cut, m, b=b, ids=ids)
+    n_a = _n_anchors(m, ids)
+    t_a, t_b = _n_tiles(n_a), _n_tiles(m)
+    counts = torch.zeros((t_a, t_b), dtype=torch.int32, device=mat.device)
+    if _is_identity(cut, b, ids):
+        rc = _library().gmat_screen_count(
+            mat.data_ptr(), py.data_ptr(), mat.shape[0], mat.shape[1], m,
+            float(cut), counts.data_ptr(), t_a, *_launch_args(mat))
+    else:
+        pos_ids = (ids if ids is not None
+                   else torch.arange(m, dtype=torch.int32, device=mat.device))
+        work = screen_worklist(pos_ids, m)
+        if len(work) == 0:  # no anchor has a partner: nothing to launch
+            return counts
+        rc = _library().gmat_screen_count_general(
+            *_general_args(mat, py, cut, m, b, ids), work.data_ptr(),
+            len(work), counts.data_ptr(), t_b, *_launch_args(mat))
     _raise_on(rc, "gmat_screen_count")
     LAUNCHES["screen_count"] += 1
     return counts
 
 
-def screen_extract(mat, py, cut, m, counts):
+def screen_extract(mat, py, cut, m, counts, *, b=None, ids=None):
     """Hits of every tile with a nonzero count in `counts` (from
-    `screen_counts` with the same arguments), unordered: (i int32, j int32,
-    eff float32)."""
-    _check(mat, py, m)
+    `screen_counts` with the same arguments), unordered: (anchor position
+    int32, j int32, eff float32)."""
+    _check(mat, py, m, cut, b, ids)
     tiles = torch.nonzero(counts).to(torch.int32).contiguous()
     if mat.device.type == "cpu":
-        return screen_extract_ref(mat, py, cut, m, tiles)
+        return screen_extract_ref(mat, py, cut, m, tiles, b=b, ids=ids)
     total = int(counts.sum())
     if total == 0:
         return _empty_hits(mat.device, mat.dtype)
     if total >= 2 ** 31:
         raise ValueError(f"{total} hits exceed the int32 hit buffer")
     dev = mat.device
-    out_i = torch.empty(total, dtype=torch.int32, device=dev)
+    out_p = torch.empty(total, dtype=torch.int32, device=dev)
     out_j = torch.empty(total, dtype=torch.int32, device=dev)
     out_e = torch.empty(total, dtype=torch.float32, device=dev)
     state = torch.zeros(2, dtype=torch.int32, device=dev)  # cursor, overflow
-    rc = _library().gmat_screen_extract(
-        mat.data_ptr(), py.data_ptr(), mat.shape[0], mat.shape[1], m,
-        float(cut), tiles.data_ptr(), tiles.shape[0], out_i.data_ptr(),
-        out_j.data_ptr(), out_e.data_ptr(), total, state.data_ptr(),
-        *_launch_args(mat))
+    tail = (tiles.data_ptr(), tiles.shape[0], out_p.data_ptr(),
+            out_j.data_ptr(), out_e.data_ptr(), total, state.data_ptr(),
+            *_launch_args(mat))
+    if _is_identity(cut, b, ids):
+        rc = _library().gmat_screen_extract(
+            mat.data_ptr(), py.data_ptr(), mat.shape[0], mat.shape[1], m,
+            float(cut), *tail)
+    else:
+        rc = _library().gmat_screen_extract_general(
+            *_general_args(mat, py, cut, m, b, ids), *tail)
     _raise_on(rc, "gmat_screen_extract")
     LAUNCHES["screen_extract"] += 1
     cursor, overflow = state.tolist()
@@ -296,17 +487,24 @@ def screen_extract(mat, py, cut, m, counts):
         raise RuntimeError(f"screen extraction found {cursor} hits "
                            f"({overflow} past the buffer) where the counts "
                            f"gave {total}")
-    return out_i, out_j, out_e
+    return out_p, out_j, out_e
 
 
-def screen_hits(mat, py, cut, m):
+def screen_hits(mat, py, cut, m, *, b=None, anchors=None):
     """The two-phase screen: (i int64, j int64, eff float32) of every pair
-    j > i, j < m with |S[i, j]| > cut, sorted by (i, j) on mat's device."""
-    counts = screen_counts(mat, py, cut, m)
-    i, j, eff = screen_extract(mat, py, cut, m, counts)
-    i, j = i.to(torch.int64), j.to(torch.int64)
-    order = torch.argsort(i * m + j)
-    return i[order], j[order], eff[order]
+    of an anchor i of `anchors` (SNP ids, columns of mat; None for every
+    SNP) and a partner j of b (mat when None), j > i, j < m, with |S[i, j]|
+    above `cut` (a float or a `CutTable`), sorted on mat's device by
+    (position in the anchor list, j): (i, j) for an ascending list."""
+    a, ids = anchor_panel(mat, anchors, m)
+    if b is None and ids is not None:
+        b = mat
+    counts = screen_counts(a, py, cut, m, b=b, ids=ids)
+    p, j, eff = screen_extract(a, py, cut, m, counts, b=b, ids=ids)
+    p, j = p.to(torch.int64), j.to(torch.int64)
+    order = torch.argsort(p * m + j)
+    i = p[order] if ids is None else ids.long()[p[order]]
+    return i, j[order], eff[order]
 
 
 # the exact scan ---------------------------------------------------------------

@@ -1,15 +1,29 @@
-"""Effect-only epistasis screening and the approximate AA test pipeline.
+"""Effect-only epistasis screening and the approximate test pipelines.
 
-Counterpart of the AA flat-cut path of `gmat_tpu/scan/screen.py`:
-- `remma_epiAA_eff`: screen |eff(i, j)| > eff_cut = sqrt(chi2_crit·var_app)
-  over all pairs j > i, write `snp_0 snp_1 eff` plus the appended
-  `chi_app p_app` columns;
-- `remma_epiAA_approx`: random-pair variance calibration (median) -> screen
-  -> exact re-test of the survivors -> merge of approx and exact p.
+Counterpart of `gmat_tpu/scan/screen.py` (the reference's C/OpenMP kernel
+family and its drivers):
+- `remma_epi{AA,AD,DD}_eff`: screen |eff(i, j)| > eff_cut =
+  sqrt(chi2_crit·var_app) over the pairs j > i of an anchor list, write
+  `snp_0 snp_1 eff` plus the appended `chi_app p_app` columns;
+- `remma_epi{AA,AD,DD}_maf_eff`: the same with per-bin-pair cuts
+  eff_cut[bin_i*10 + bin_j], bins = int(maf*20) or int(het_freq*20);
+- `remma_epi{AA,AD,DD}_approx`: random-pair variance calibration (median)
+  -> screen -> exact re-test of the survivors -> merge of approx and exact p;
+- `remma_epi{AA,AD,DD}_maf_approx`: per-bin-pair mean variance calibration
+  with a global-mean fallback, written beside the table as `.freq` /
+  `.heter` / `.maf` and `.freq_denominator`;
+- `*_parallel`: one part of the balanced anchor split, written to
+  `f"{out_file}.{part}"`.
+AD screens both orientations: anchors i against partners j > i as
+(A_i, D_j) -> row (i, j), then as (D_i, A_j) -> row (j, i); the cut index
+is bins_a[anchor]*10 + bins_b[partner] in both, as in the reference's C
+kernel.
 
-The screen is S = (A ⊙ py)ᵀ A in float32 on the hand-written Hopper kernel
-(`scan/kernels.py`); its FMA is full float32, so no threshold slack is
-applied.  Survivors are re-tested exactly in float64.
+The screen is S = (A ⊙ py)ᵀ B in float32 on the hand-written Hopper kernel
+K1 (`scan/kernels.py::screen_hits`), for every kind, anchor list and cut
+table; its FMA is full float32, so no threshold slack is applied.
+Survivors are re-tested exactly in float64.  Not ported: the `mesh=`
+argument of the JAX package's entry points.
 """
 from __future__ import annotations
 
@@ -23,12 +37,9 @@ import torch
 
 from gmat_tpu_torch.config import SCREEN_DTYPE, resolve_device
 from gmat_tpu_torch.core.stats import chi2_isf
-from gmat_tpu_torch.scan.kernels import screen_hits
+from gmat_tpu_torch.scan.kernels import CutTable, screen_hits
 
 logger = logging.getLogger(__name__)
-
-_TODO = ("ROADMAP.md queue 1, item 13 (AD/DD kinds, MAF cut panels, anchor "
-         "subsets and the *_parallel screens)")
 
 
 def _screen_slack() -> float:
@@ -37,48 +48,48 @@ def _screen_slack() -> float:
     return 0.0
 
 
-def _run_screen(a_mat, pymat, anchors, table):
-    """Screen driver: (i, j, eff) host arrays of the hits, sorted by (i, j).
+def _run_screen(a_mat, b_mat, pymat, anchors, bins_a, bins_b, table,
+                flip_output=False):
+    """Screen driver: (i, j, eff) host arrays of the pairs of an anchor i of
+    `anchors` (columns of a_mat) and a partner j > i of b_mat with
+    |S| > table[bins_a[i]*10 + bins_b[j]], anchors in list order and
+    partners ascending; with `flip_output` each row is written (j, i).
 
-    Serves the full upper triangle of the panel against itself at one flat
-    cut, with every SNP but the last as an anchor; any other case raises."""
-    table = np.asarray(table, dtype=np.float32) * np.float32(1.0 - _screen_slack())
-    m = a_mat.shape[1]
-    if not (np.ptp(table) == 0.0
-            and np.array_equal(np.asarray(anchors), np.arange(m - 1))):
-        raise NotImplementedError(f"this screen is not ported yet: {_TODO}")
-    i, j, eff = screen_hits(a_mat, pymat, float(table.ravel()[0]), m)
-    return i.cpu().numpy(), j.cpu().numpy(), eff.cpu().numpy()
+    The table is cast to float32; a flat table is one cut."""
+    table = np.asarray(table, dtype=np.float32) * np.float32(
+        1.0 - _screen_slack())
+    m = b_mat.shape[1]
+    dev = a_mat.device
+    if np.ptp(table) == 0.0:
+        cut = float(table[0])
+    else:
+        cut = CutTable(
+            torch.as_tensor(np.asarray(bins_a, dtype=np.int32), device=dev),
+            torch.as_tensor(np.asarray(bins_b, dtype=np.int32), device=dev),
+            torch.as_tensor(table, device=dev))
+    i, j, eff = screen_hits(
+        a_mat, pymat, cut, m, b=None if b_mat is a_mat else b_mat,
+        anchors=torch.as_tensor(np.asarray(anchors, dtype=np.int64)))
+    i, j, eff = (t.cpu().numpy() for t in (i, j, eff))
+    return (j, i, eff) if flip_output else (i, j, eff)
 
 
-def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0, eff_cut_table, out_file, device=None):
-    """Shared driver of the *_eff screens; writes `snp_0 snp_1 eff` rows and
-    returns the hit arrays."""
-    from gmat_tpu_torch.scan.common import (coded_matrix, design_matrix_cached,
-                                            prepare_genotypes_device,
-                                            score_pieces_cached)
+def _maf_bins(geno):
+    """int(maf*20) bins (the AD screens call this vector `freqA`)."""
+    freq = 1.0 - np.sum(geno, axis=0) / (2.0 * geno.shape[0])
+    freq = np.where(freq > 0.5, 1.0 - freq, freq)
+    return freq, (freq * 20).astype(np.int64)
 
-    if kind != "AA":
-        raise NotImplementedError(f"epi{kind} screen is not ported yet: {_TODO}")
-    dev = resolve_device(device)
-    dm = design_matrix_cached(pheno_file, bed_prefix)
-    t0 = time.perf_counter()
-    pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
-    g, num_snp = prepare_genotypes_device(bed_prefix, device=dev)
-    a_full = coded_matrix(g, "add", SCREEN_DTYPE)
-    py = pieces.pymat.to(SCREEN_DTYPE).contiguous()
-    logger.info("Screen engine setup (pieces/geno/codings): %.3f s",
-                time.perf_counter() - t0)
-    hi_anchor = num_snp - 1
-    if snp_lst_0 is None:
-        snp_lst_0 = range(hi_anchor)
-    elif max(snp_lst_0) >= hi_anchor or min(snp_lst_0) < 0:
-        raise ValueError("snp_lst_0 is out of range!")
-    t0 = time.perf_counter()
-    idx0, idx1, eff = _run_screen(a_full, py, list(snp_lst_0), eff_cut_table)
-    logger.info("Screen sweep incl. assembly: %.3f s, %d hits",
-                time.perf_counter() - t0, len(idx0))
+
+def _het_bins(geno):
+    """int(het_freq*20) bins of the folded heterozygote frequency, the
+    dominance-side bin variable (`freqD` of the AD screens)."""
+    freq = np.sum(np.abs(geno - 1.0) < 0.001, axis=0) / geno.shape[0]
+    freq = np.where(freq > 0.5, 1.0 - freq, freq)
+    return freq, (freq * 20).astype(np.int64)
+
+
+def _write_screen(out_file, idx0, idx1, eff):
     t0 = time.perf_counter()
     with open(out_file, "w") as f:
         f.write("snp_0 snp_1 eff\n")
@@ -89,12 +100,64 @@ def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                 f, sep=" ", header=False, index=False, float_format="%g")
     logger.info("Screen write: %d rows in %.3f s", len(idx0),
                 time.perf_counter() - t0)
+
+
+def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                   snp_lst_0, eff_cut_table, bins_a, bins_b, out_file,
+                   maf=False, dm=None, device=None):
+    """Shared driver of the *_eff / *_maf_eff family.
+
+    eff_cut_table: (111,) per-bin-pair |eff| cuts (flat for the non-MAF
+    screens); bins_a / bins_b: (m,) bins of the anchor (table row) and the
+    partner (table column), equal except for AD, whose anchor side bins by
+    MAF and partner side by heterozygote frequency in BOTH orientations.
+    Writes `snp_0 snp_1 eff` rows and returns the hit arrays.  `dm`
+    overrides the phenotype-file parse with a (y, xmat, zmat) design."""
+    from gmat_tpu_torch.scan.common import (coded_matrix, design_matrix_cached,
+                                            prepare_genotypes_device,
+                                            score_pieces_cached)
+
+    dev = resolve_device(device)
+    if dm is None:
+        dm = design_matrix_cached(pheno_file, bed_prefix)
+    t0 = time.perf_counter()
+    pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
+    g, num_snp = prepare_genotypes_device(bed_prefix, device=dev)
+    a_full = coded_matrix(g, "add", SCREEN_DTYPE) if kind != "DD" else None
+    d_full = coded_matrix(g, "dom", SCREEN_DTYPE) if kind != "AA" else None
+    py = pieces.pymat.to(SCREEN_DTYPE).contiguous()
+    logger.info("Screen engine setup (pieces/geno/codings): %.3f s",
+                time.perf_counter() - t0)
+    # AA/DD anchors stop at num_snp-2; the plain AD screen anchors over all
+    # SNPs (the j > i mask empties the last), the AD *maf* screen stops at
+    # num_snp-2 like AA
+    hi_anchor = num_snp if (kind == "AD" and not maf) else num_snp - 1
+    if snp_lst_0 is None:
+        snp_lst_0 = range(hi_anchor)
+    elif max(snp_lst_0) >= hi_anchor or min(snp_lst_0) < 0:
+        raise ValueError("snp_lst_0 is out of range!")
+    anchors = list(snp_lst_0)
+    args = (py, anchors, bins_a, bins_b, eff_cut_table)
+    t0 = time.perf_counter()
+    if kind == "AA":
+        res = [_run_screen(a_full, a_full, *args)]
+    elif kind == "DD":
+        res = [_run_screen(d_full, d_full, *args)]
+    else:
+        res = [_run_screen(a_full, d_full, *args),
+               _run_screen(d_full, a_full, *args, flip_output=True)]
+    idx0, idx1, eff = (np.concatenate(parts) for parts in zip(*res))
+    logger.info("Screen sweep(s) incl. assembly: %.3f s, %d hits",
+                time.perf_counter() - t0, len(idx0))
+    _write_screen(out_file, idx0, idx1, eff)
     return idx0, idx1, eff
 
 
 def _append_approx_p(screen_file, out_file, bins_a, bins_b, freq_deno):
     """Append chi_app/p_app columns; the denominator is indexed
-    bins_a[snp_0]*10 + bins_b[snp_1] on the written row."""
+    bins_a[snp_0]*10 + bins_b[snp_1] on the WRITTEN row, which for AD's
+    flipped orientation differs from the screen's cut index, as in the
+    reference."""
     from scipy.stats import chi2 as chi2_dist
 
     t0 = time.perf_counter()
@@ -118,28 +181,115 @@ def _append_approx_p(screen_file, out_file, bins_a, bins_b, freq_deno):
                 time.perf_counter() - t0)
 
 
-def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0=None, var_app=1.0, p_cut=1.0e-5,
-                   out_file="epi_eff", device=None):
+def _num_snp(bed_prefix):
     from gmat_tpu_torch.io.bed import read_bim
 
+    return len(read_bim(bed_prefix + ".bim"))
+
+
+def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                   snp_lst_0=None, var_app=1.0, p_cut=1.0e-5,
+                   out_file="epi_eff", dm=None, device=None):
     chi_cut = chi2_isf(p_cut, 1)
     table = np.full(111, np.sqrt(chi_cut * var_app))
-    bins = np.zeros(len(read_bim(bed_prefix + ".bim")), dtype=np.int64)
+    bins = np.zeros(_num_snp(bed_prefix), dtype=np.int64)
     deno = np.full(111, var_app)
     tmp = out_file + ".temp"
     _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0, table, tmp, device=device)
+                   snp_lst_0, table, bins, bins, tmp, dm=dm, device=device)
     _append_approx_p(tmp, out_file, bins, bins, deno)
     os.remove(tmp)
     return 0
 
+
+def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                       snp_lst_0=None, bins_a=None, bins_b=None,
+                       freq_deno=None, p_cut=1.0e-5, out_file="epi_maf_eff",
+                       dm=None, device=None):
+    chi_cut = chi2_isf(p_cut, 1)
+    num_snp = _num_snp(bed_prefix)
+    if bins_a is None:
+        bins_a = np.zeros(num_snp, dtype=np.int64)
+    if bins_b is None:
+        bins_b = np.zeros(num_snp, dtype=np.int64)
+    if freq_deno is None:
+        freq_deno = np.ones(111)
+    table = np.sqrt(chi_cut * np.asarray(freq_deno))
+    tmp = out_file + ".temp"
+    _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                   snp_lst_0, table, bins_a, bins_b, tmp, maf=True, dm=dm,
+                   device=device)
+    _append_approx_p(tmp, out_file, bins_a, bins_b, np.asarray(freq_deno))
+    os.remove(tmp)
+    return 0
+
+
+# public *_eff screens ----------------------------------------------------------
 
 def remma_epiAA_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
                     var_app=1.0, p_cut=1.0e-5, out_file="epiAA_eff",
                     device=None):
     return _remma_epi_eff("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                           snp_lst_0, var_app, p_cut, out_file, device=device)
+
+
+def remma_epiAD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
+                    var_app=1.0, p_cut=1.0e-5, out_file="epiAD_eff",
+                    device=None):
+    return _remma_epi_eff("AD", pheno_file, bed_prefix, gmat_lst, var_com,
+                          snp_lst_0, var_app, p_cut, out_file, device=device)
+
+
+def remma_epiDD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
+                    var_app=1.0, p_cut=1.0e-5, out_file="epiDD_eff",
+                    device=None):
+    return _remma_epi_eff("DD", pheno_file, bed_prefix, gmat_lst, var_com,
+                          snp_lst_0, var_app, p_cut, out_file, device=device)
+
+
+def remma_epiAA_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
+                        snp_lst_0=None, freq=None, freq_deno=None,
+                        p_cut=1.0e-5, out_file="epiAA_maf_eff", device=None):
+    """MAF-binned AA screen; `freq` = int(maf*20) bins for both SNPs."""
+    return _remma_epi_maf_eff("AA", pheno_file, bed_prefix, gmat_lst, var_com,
+                              snp_lst_0, freq, freq, freq_deno, p_cut,
+                              out_file, device=device)
+
+
+def remma_epiAD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
+                        snp_lst_0=None, freqA=None, freqD=None,
+                        freq_deno=None, p_cut=1.0e-5,
+                        out_file="epiAD_maf_eff", device=None):
+    """Binned AD screen; `freqA` = int(maf*20) bins of the A-coded side,
+    `freqD` = int(het_freq*20) bins of the D-coded side."""
+    return _remma_epi_maf_eff("AD", pheno_file, bed_prefix, gmat_lst, var_com,
+                              snp_lst_0, freqA, freqD, freq_deno, p_cut,
+                              out_file, device=device)
+
+
+def remma_epiDD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
+                        snp_lst_0=None, freq=None, freq_deno=None,
+                        p_cut=1.0e-5, out_file="epiDD_maf_eff", device=None):
+    """Binned DD screen; `freq` = int(het_freq*20) heterozygote-frequency
+    bins for both SNPs."""
+    return _remma_epi_maf_eff("DD", pheno_file, bed_prefix, gmat_lst, var_com,
+                              snp_lst_0, freq, freq, freq_deno, p_cut,
+                              out_file, device=device)
+
+
+# approximate pipelines -------------------------------------------------------
+
+def _pair_fn(kind):
+    from gmat_tpu_torch.scan import pairs as pairs_mod
+
+    return getattr(pairs_mod, f"remma_epi{kind}_pair")
+
+
+def _random_pair_fn(kind, num_snp, out_file, num_pair, seed):
+    from gmat_tpu_torch.scan.random_pair import random_pair, random_pairAD
+
+    fn = random_pairAD if kind == "AD" else random_pair
+    return fn(num_snp, out_file=out_file, num_pair=num_pair, seed=seed)
 
 
 def _merge_approx_exact(approx_file, exact_file, out_file):
@@ -174,45 +324,34 @@ def _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
         torch.cuda.synchronize(mat0.device)
 
 
-def _remma_epi_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                      p_cut=1.0e-5, num_random_pair=100000,
-                      out_file="epi_approx", snp_lst_0=None, seed=0,
-                      device=None):
-    from gmat_tpu_torch.io.bed import read_bim
-    from gmat_tpu_torch.scan.pairs import remma_epiAA_pair
-    from gmat_tpu_torch.scan.random_pair import random_pair
-
-    if kind != "AA":
-        raise NotImplementedError(f"epi{kind} approx is not ported yet: {_TODO}")
+def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                     num_random_pair, out_file, seed, screen, device):
+    """prep -> calibrate (the exact test of `num_random_pair` random pairs)
+    -> screen(calibration table, approx file) -> exact re-test of the
+    survivors -> merge, each stage timed into `LAST_APPROX_STAGES`."""
     stages = {}
     t_all = time.perf_counter()
-    t0 = time.perf_counter()
     _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com, device)
-    stages["prep"] = time.perf_counter() - t0
-    num_snp = len(read_bim(bed_prefix + ".bim"))
+    stages["prep"] = time.perf_counter() - t_all
     logger.info("Random calibration: %d pairs", num_random_pair)
     rp = out_file + ".random_pair"
-    random_pair(num_snp, out_file=rp, num_pair=num_random_pair, seed=seed)
+    _random_pair_fn(kind, _num_snp(bed_prefix), rp, num_random_pair, seed)
+    pair_fn = _pair_fn(kind)
     t0 = time.perf_counter()
-    remma_epiAA_pair(pheno_file, bed_prefix, gmat_lst, var_com,
-                     snp_pair_file=rp, p_cut=1.1,
-                     out_file=out_file + ".random", device=device)
-    res_df = pd.read_csv(out_file + ".random", header=0, sep=r"\s+")
-    var_median = float(np.median(res_df["var"]))
+    pair_fn(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file=rp,
+            p_cut=1.1, out_file=out_file + ".random", device=device)
+    calib = pd.read_csv(out_file + ".random", header=0, sep=r"\s+")
     stages["calibrate"] = time.perf_counter() - t0
     os.remove(rp)
     os.remove(out_file + ".random")
-    logger.info("Approximate effect variance (median): %g", var_median)
     t0 = time.perf_counter()
-    _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0=snp_lst_0, var_app=var_median, p_cut=p_cut,
-                   out_file=out_file + ".approx_p", device=device)
+    screen(calib, out_file + ".approx_p")
     stages["screen"] = time.perf_counter() - t0
     logger.info("Exact re-test of survivors")
     t0 = time.perf_counter()
-    remma_epiAA_pair(pheno_file, bed_prefix, gmat_lst, var_com,
-                     snp_pair_file=out_file + ".approx_p", p_cut=1.1,
-                     out_file=out_file + ".exact_p", device=device)
+    pair_fn(pheno_file, bed_prefix, gmat_lst, var_com,
+            snp_pair_file=out_file + ".approx_p", p_cut=1.1,
+            out_file=out_file + ".exact_p", device=device)
     stages["retest"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _merge_approx_exact(out_file + ".approx_p", out_file + ".exact_p", out_file)
@@ -227,6 +366,83 @@ def _remma_epi_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     return 0
 
 
+def _remma_epi_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                      p_cut=1.0e-5, num_random_pair=100000,
+                      out_file="epi_approx", snp_lst_0=None, seed=0,
+                      device=None):
+    def screen(calib, approx_file):
+        var_median = float(np.median(calib["var"]))
+        logger.info("Approximate effect variance (median): %g", var_median)
+        _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                       snp_lst_0=snp_lst_0, var_app=var_median, p_cut=p_cut,
+                       out_file=approx_file, device=device)
+
+    return _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                            num_random_pair, out_file, seed, screen, device)
+
+
+def _bin_denominators(calib, bins_a, bins_b, symmetric, out_file):
+    """Per-bin-pair mean calibration variance, with the global mean for a
+    bin pair no calibration pair fell in and 1 for the bin pairs that no
+    SNP pair has; written as `k1 k2 value` lines over set(bins_a) x
+    set(bins_b).  `symmetric` counts each pair under both keys."""
+    b0 = bins_a[calib["snp_0"].to_numpy(dtype=np.int64)]
+    b1 = bins_b[calib["snp_1"].to_numpy(dtype=np.int64)]
+    v = calib["var"].to_numpy()
+    sums = np.zeros(111)
+    counts = np.zeros(111)
+    for bb0, bb1, vv in zip(b0, b1, v):
+        keys = (bb0 * 10 + bb1, bb1 * 10 + bb0) if symmetric \
+            else (bb0 * 10 + bb1,)
+        for key in keys:
+            sums[key] += vv
+            counts[key] += 1
+    global_mean = sums.sum() / counts.sum()
+    freq_deno = np.ones(111)
+    with open(out_file, "w") as fout:
+        for k1 in np.unique(bins_a):
+            for k2 in np.unique(bins_b):
+                key = k1 * 10 + k2
+                freq_deno[key] = (sums[key] / counts[key]) if counts[key] \
+                    else global_mean
+                fout.write(f"{k1} {k2} {freq_deno[key]}\n")
+    return freq_deno
+
+
+def _remma_epi_maf_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                          p_cut=1.0e-5, num_random_pair=100000,
+                          out_file="epi_maf_approx", snp_lst_0=None, seed=0,
+                          device=None):
+    from gmat_tpu_torch.scan.common import prepare_genotypes
+
+    def screen(calib, approx_file):
+        geno, _, _ = prepare_genotypes(bed_prefix)
+        # AA bins both sides by MAF (.freq); DD both by heterozygote
+        # frequency (.heter); AD the A side by MAF (.maf) and the D side by
+        # het frequency (.heter), with no key symmetrisation
+        if kind == "AA":
+            freq, bins_a = _maf_bins(geno)
+            np.savetxt(out_file + ".freq", freq)
+            bins_b = bins_a
+        elif kind == "DD":
+            freq, bins_a = _het_bins(geno)
+            np.savetxt(out_file + ".heter", freq)
+            bins_b = bins_a
+        else:
+            freq_a, bins_a = _maf_bins(geno)
+            freq_d, bins_b = _het_bins(geno)
+            np.savetxt(out_file + ".maf", freq_a)
+            np.savetxt(out_file + ".heter", freq_d)
+        freq_deno = _bin_denominators(calib, bins_a, bins_b, kind != "AD",
+                                      out_file + ".freq_denominator")
+        _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                           snp_lst_0, bins_a, bins_b, freq_deno, p_cut,
+                           approx_file, device=device)
+
+    return _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                            num_random_pair, out_file, seed, screen, device)
+
+
 def remma_epiAA_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                        p_cut=1.0e-5, num_random_pair=100000,
                        out_file="epiAA_approx", seed=0, device=None):
@@ -234,3 +450,210 @@ def remma_epiAA_approx(pheno_file, bed_prefix, gmat_lst, var_com,
     return _remma_epi_approx("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                              p_cut, num_random_pair, out_file, seed=seed,
                              device=device)
+
+
+def remma_epiAD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
+                       p_cut=1.0e-5, num_random_pair=100000,
+                       out_file="epiAD_approx", seed=0, device=None):
+    return _remma_epi_approx("AD", pheno_file, bed_prefix, gmat_lst, var_com,
+                             p_cut, num_random_pair, out_file, seed=seed,
+                             device=device)
+
+
+def remma_epiDD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
+                       p_cut=1.0e-5, num_random_pair=100000,
+                       out_file="epiDD_approx", seed=0, device=None):
+    return _remma_epi_approx("DD", pheno_file, bed_prefix, gmat_lst, var_com,
+                             p_cut, num_random_pair, out_file, seed=seed,
+                             device=device)
+
+
+def remma_epiAA_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
+                           p_cut=1.0e-5, num_random_pair=100000,
+                           out_file="epiAA_maf_approx", seed=0, device=None):
+    return _remma_epi_maf_approx("AA", pheno_file, bed_prefix, gmat_lst,
+                                 var_com, p_cut, num_random_pair, out_file,
+                                 seed=seed, device=device)
+
+
+def remma_epiAD_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
+                           p_cut=1.0e-5, num_random_pair=100000,
+                           out_file="epiAD_maf_approx", seed=0, device=None):
+    return _remma_epi_maf_approx("AD", pheno_file, bed_prefix, gmat_lst,
+                                 var_com, p_cut, num_random_pair, out_file,
+                                 seed=seed, device=device)
+
+
+def remma_epiDD_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
+                           p_cut=1.0e-5, num_random_pair=100000,
+                           out_file="epiDD_maf_approx", seed=0, device=None):
+    return _remma_epi_maf_approx("DD", pheno_file, bed_prefix, gmat_lst,
+                                 var_com, p_cut, num_random_pair, out_file,
+                                 seed=seed, device=device)
+
+
+# the *_parallel parts ------------------------------------------------------------
+
+def _parallel_anchor_split(kind, bed_prefix, parallel, maf=False):
+    """Balanced anchor split of one part: triangular (up to num_snp-2),
+    except for the plain AD screens, whose anchors range over all SNPs."""
+    from gmat_tpu_torch.scan.pairs import balanced_anchor_split
+
+    return balanced_anchor_split(_num_snp(bed_prefix), parallel[0],
+                                 parallel[1],
+                                 triangular=(kind != "AD" or maf))
+
+
+def _remma_epi_eff_parallel(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                            parallel, var_app, p_cut, out_file, device):
+    snp_lst_0 = _parallel_anchor_split(kind, bed_prefix, parallel)
+    return _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                          snp_lst_0, var_app, p_cut,
+                          f"{out_file}.{parallel[1]}", device=device)
+
+
+def remma_epiAA_eff_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                             parallel, var_app=1.0, p_cut=1.0e-5,
+                             out_file="epiAA_eff_parallel", device=None):
+    return _remma_epi_eff_parallel("AA", pheno_file, bed_prefix, gmat_lst,
+                                   var_com, parallel, var_app, p_cut, out_file,
+                                   device)
+
+
+def remma_epiAD_eff_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                             parallel, var_app=1.0, p_cut=1.0e-5,
+                             out_file="epiAD_eff_parallel", device=None):
+    return _remma_epi_eff_parallel("AD", pheno_file, bed_prefix, gmat_lst,
+                                   var_com, parallel, var_app, p_cut, out_file,
+                                   device)
+
+
+def remma_epiDD_eff_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                             parallel, var_app=1.0, p_cut=1.0e-5,
+                             out_file="epiDD_eff_parallel", device=None):
+    return _remma_epi_eff_parallel("DD", pheno_file, bed_prefix, gmat_lst,
+                                   var_com, parallel, var_app, p_cut, out_file,
+                                   device)
+
+
+def _remma_epi_approx_parallel(kind, pheno_file, bed_prefix, gmat_lst,
+                               var_com, parallel, p_cut, num_random_pair,
+                               out_file, seed, device):
+    """One part's approx pipeline: it calibrates on its own random pairs
+    (seed + part), screens its anchors and re-tests its survivors; the
+    parts' `<out>.<part>` tables concatenate into the full table."""
+    snp_lst_0 = _parallel_anchor_split(kind, bed_prefix, parallel)
+    return _remma_epi_approx(
+        kind, pheno_file, bed_prefix, gmat_lst, var_com, p_cut,
+        num_random_pair, f"{out_file}.{parallel[1]}", snp_lst_0=snp_lst_0,
+        seed=seed + parallel[1], device=device)
+
+
+def remma_epiAA_approx_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                parallel, p_cut=1.0e-5,
+                                num_random_pair=100000,
+                                out_file="epiAA_approx", seed=0, device=None):
+    return _remma_epi_approx_parallel("AA", pheno_file, bed_prefix, gmat_lst,
+                                      var_com, parallel, p_cut,
+                                      num_random_pair, out_file, seed, device)
+
+
+def remma_epiAD_approx_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                parallel, p_cut=1.0e-5,
+                                num_random_pair=100000,
+                                out_file="epiAD_approx", seed=0, device=None):
+    return _remma_epi_approx_parallel("AD", pheno_file, bed_prefix, gmat_lst,
+                                      var_com, parallel, p_cut,
+                                      num_random_pair, out_file, seed, device)
+
+
+def remma_epiDD_approx_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                parallel, p_cut=1.0e-5,
+                                num_random_pair=100000,
+                                out_file="epiDD_approx", seed=0, device=None):
+    return _remma_epi_approx_parallel("DD", pheno_file, bed_prefix, gmat_lst,
+                                      var_com, parallel, p_cut,
+                                      num_random_pair, out_file, seed, device)
+
+
+def _remma_epi_maf_eff_parallel(kind, pheno_file, bed_prefix, gmat_lst,
+                                var_com, parallel, bins_a, bins_b, freq_deno,
+                                p_cut, out_file, device):
+    snp_lst_0 = _parallel_anchor_split(kind, bed_prefix, parallel, maf=True)
+    return _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                              snp_lst_0, bins_a, bins_b, freq_deno, p_cut,
+                              f"{out_file}.{parallel[1]}", device=device)
+
+
+def remma_epiAA_maf_eff_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                 parallel, freq=None, freq_deno=None,
+                                 p_cut=1.0e-5,
+                                 out_file="epiAA_maf_eff_parallel",
+                                 device=None):
+    return _remma_epi_maf_eff_parallel("AA", pheno_file, bed_prefix, gmat_lst,
+                                       var_com, parallel, freq, freq,
+                                       freq_deno, p_cut, out_file, device)
+
+
+def remma_epiAD_maf_eff_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                 parallel, freqA=None, freqD=None,
+                                 freq_deno=None, p_cut=1.0e-5,
+                                 out_file="epiAD_maf_eff_parallel",
+                                 device=None):
+    """AD part screen; `freqA`/`freqD` as in `remma_epiAD_maf_eff`."""
+    return _remma_epi_maf_eff_parallel("AD", pheno_file, bed_prefix, gmat_lst,
+                                       var_com, parallel, freqA, freqD,
+                                       freq_deno, p_cut, out_file, device)
+
+
+def remma_epiDD_maf_eff_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                 parallel, freq=None, freq_deno=None,
+                                 p_cut=1.0e-5,
+                                 out_file="epiDD_maf_eff_parallel",
+                                 device=None):
+    return _remma_epi_maf_eff_parallel("DD", pheno_file, bed_prefix, gmat_lst,
+                                       var_com, parallel, freq, freq,
+                                       freq_deno, p_cut, out_file, device)
+
+
+def _remma_epi_maf_approx_parallel(kind, pheno_file, bed_prefix, gmat_lst,
+                                   var_com, parallel, p_cut, num_random_pair,
+                                   out_file, seed, device):
+    snp_lst_0 = _parallel_anchor_split(kind, bed_prefix, parallel, maf=True)
+    return _remma_epi_maf_approx(
+        kind, pheno_file, bed_prefix, gmat_lst, var_com, p_cut,
+        num_random_pair, f"{out_file}.{parallel[1]}", snp_lst_0=snp_lst_0,
+        seed=seed + parallel[1], device=device)
+
+
+def remma_epiAA_maf_approx_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                    parallel, p_cut=1.0e-5,
+                                    num_random_pair=100000,
+                                    out_file="epiAA_maf_approx_parallel",
+                                    seed=0, device=None):
+    return _remma_epi_maf_approx_parallel("AA", pheno_file, bed_prefix,
+                                          gmat_lst, var_com, parallel, p_cut,
+                                          num_random_pair, out_file, seed,
+                                          device)
+
+
+def remma_epiAD_maf_approx_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                    parallel, p_cut=1.0e-5,
+                                    num_random_pair=100000,
+                                    out_file="epiAD_maf_approx_parallel",
+                                    seed=0, device=None):
+    return _remma_epi_maf_approx_parallel("AD", pheno_file, bed_prefix,
+                                          gmat_lst, var_com, parallel, p_cut,
+                                          num_random_pair, out_file, seed,
+                                          device)
+
+
+def remma_epiDD_maf_approx_parallel(pheno_file, bed_prefix, gmat_lst, var_com,
+                                    parallel, p_cut=1.0e-5,
+                                    num_random_pair=100000,
+                                    out_file="epiDD_maf_approx_parallel",
+                                    seed=0, device=None):
+    return _remma_epi_maf_approx_parallel("DD", pheno_file, bed_prefix,
+                                          gmat_lst, var_com, parallel, p_cut,
+                                          num_random_pair, out_file, seed,
+                                          device)

@@ -158,6 +158,26 @@ def test_wrapper_rejects_bad_input(problem):
                         mat.shape[1] + 1)
 
 
+def test_general_wrapper_rejects_bad_input(problem):
+    mat, py, _ = problem
+    m = mat.shape[1]
+    mat_t, py_t = torch.as_tensor(mat), torch.as_tensor(py)
+    ids = torch.tensor([3, 1], dtype=torch.int32)
+    with pytest.raises(ValueError):  # b with other rows than mat
+        K.screen_counts(mat_t, py_t, 1.0, m, b=mat_t[:-1].contiguous())
+    with pytest.raises(ValueError):  # an anchor id past the partners
+        K.screen_counts(mat_t, py_t, 1.0, m, ids=torch.tensor(
+            [0, m], dtype=torch.int32))
+    with pytest.raises(TypeError):
+        K.screen_counts(mat_t, py_t, 1.0, m, ids=ids.long())
+    bins = torch.zeros(m, dtype=torch.int32)
+    table = torch.ones(111)
+    with pytest.raises(ValueError):  # bin 11 reads past the table
+        K.screen_counts(mat_t, py_t, K.CutTable(bins + 11, bins, table), m)
+    with pytest.raises(TypeError):
+        K.screen_counts(mat_t, py_t, K.CutTable(bins, bins, table[:110]), m)
+
+
 # the Hopper kernel: needs the card ------------------------------------------
 
 @pytest.fixture
@@ -190,3 +210,132 @@ def test_kernel_matches_plain_version(cuda, n, m, q):
                                rtol=1e-4)
     with pytest.raises(TypeError):
         K.screen_counts(mat64, py64, cut, m)
+
+
+# the general screen: anchor subsets, a second panel, cut tables --------------
+
+def _general_problem(n, m, n_anchors, seed, q, table_kind):
+    """Additive and dominance codes of a seeded panel, py, an anchor list
+    (None, or unsorted ids with the tile edges 127, 128, 255, 256 and m-2),
+    and the cut: a flat quantile cut, a `CutTable` whose bins include 10,
+    -999 (keep all) or 1e9 (no hits)."""
+    rng = np.random.default_rng(seed)
+    geno = rng.choice([0.0, 1.0, 2.0], size=(n, m))
+    a = (geno - geno.mean(0)).astype(np.float32)
+    het = (geno == 1.0).astype(np.float64)
+    d = (het - het.mean(0)).astype(np.float32)
+    py = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    anchors = None
+    if n_anchors:
+        edges = [x for x in (127, 128, 255, 256, m - 2) if x < m - 1]
+        rest = np.setdiff1d(rng.permutation(m - 1), edges)[:n_anchors - len(edges)]
+        anchors = rng.permutation(np.concatenate([edges, rest])).astype(np.int64)
+    s64 = (a.astype(np.float64) * py.astype(np.float64)[:, None]).T @ d
+    cut = float(np.quantile(np.abs(s64), q))
+    if table_kind == "table":
+        bins_a = rng.integers(0, 11, size=m).astype(np.int32)
+        bins_b = rng.integers(0, 11, size=m).astype(np.int32)
+        bins_a[:2] = bins_b[-2:] = 10
+        table = (cut * (0.8 + 0.05 * (np.arange(111) % 9))).astype(np.float32)
+        cut = K.CutTable(torch.as_tensor(bins_a), torch.as_tensor(bins_b),
+                         torch.as_tensor(table))
+    elif table_kind == "keep_all":
+        cut = -999.0
+    elif table_kind == "zero_hits":
+        cut = 1e9
+    return a, d, py, anchors, cut
+
+
+def _on(cut, device):
+    if isinstance(cut, K.CutTable):
+        return K.CutTable(cut.bins_a.to(device), cut.bins_b.to(device),
+                          cut.table.to(device))
+    return cut
+
+
+def _scaled(cut, factor):
+    return cut.scaled(factor) if isinstance(cut, K.CutTable) else cut * factor
+
+
+@pytest.mark.parametrize("n,m,n_anchors,table_kind", [
+    (50, 301, 40, "table"), (33, 300, 0, "flat"), (24, 260, 7, "keep_all")])
+def test_general_driver_matches_plain_screen(n, m, n_anchors, table_kind):
+    """The two-phase driver of the general screen (gather -> counts over the
+    work list -> hot tiles -> extract -> sort) against the one-pass plain
+    version, with a second panel b."""
+    a, d, py, anchors, cut = _general_problem(n, m, n_anchors, n + m, 0.97,
+                                              table_kind)
+    args = (torch.as_tensor(a), torch.as_tensor(py), cut, m)
+    kw = {"b": torch.as_tensor(d),
+          "anchors": None if anchors is None else torch.as_tensor(anchors)}
+    i, j, e = K.screen_hits(*args, **kw)
+    ri, rj, re = K.screen_hits_ref(*args, block_elems=m * 3, **kw)
+    torch.testing.assert_close(i, ri, rtol=0, atol=0)
+    torch.testing.assert_close(j, rj, rtol=0, atol=0)
+    torch.testing.assert_close(e, re, rtol=1e-6, atol=1e-6)
+    assert len(i) > 50 and bool(torch.all(j > i))
+    pa, ids = K.anchor_panel(args[0], kw["anchors"], m)
+    counts = K.screen_counts(pa, args[1], cut, m, b=kw["b"], ids=ids)
+    assert int(counts.sum()) == len(i)
+    work = set(map(tuple, K.screen_worklist(
+        ids if ids is not None else torch.arange(m, dtype=torch.int32),
+        m).tolist()))
+    hot = set(map(tuple, torch.nonzero(counts).tolist()))
+    assert hot <= work
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,n_anchors,table_kind,q", [
+    (97, 1001, 300, "table", 0.99),      # odd n, ragged m, unsorted subset
+    (128, 1024, 301, "flat", 0.995),     # float4 loads on, a != b
+    (64, 515, 0, "flat", 0.99),          # identity anchors, a != b
+    (64, 515, 0, "table", 0.99),         # identity anchors, a table
+    (33, 301, 77, "keep_all", 0.0),
+    (50, 700, 129, "zero_hits", 0.0),
+])
+def test_general_kernel_matches_plain_version(cuda, n, m, n_anchors,
+                                              table_kind, q):
+    a, d, py, anchors, cut = _general_problem(n, m, n_anchors, 7, q,
+                                              table_kind)
+    a_d, d_d, py_d = (torch.as_tensor(x, device=cuda) for x in (a, d, py))
+    cut_d = _on(cut, cuda)
+    anc = None if anchors is None else torch.as_tensor(anchors, device=cuda)
+    pa, ids = K.anchor_panel(a_d, anc, m)
+    pa64, py64, d64 = pa.double(), py_d.double(), d_d.double()
+    before = dict(K.LAUNCHES)
+    counts = K.screen_counts(pa, py_d, cut_d, m, b=d_d, ids=ids)
+    core = K.screen_tile_counts_ref(pa64, py64, _scaled(cut_d, 1 + BAND), m,
+                                    b=d64, ids=ids)
+    hull = K.screen_tile_counts_ref(pa64, py64, _scaled(cut_d, 1 - BAND), m,
+                                    b=d64, ids=ids)
+    lo, hi = (core, hull) if table_kind != "keep_all" else (hull, core)
+    assert bool(torch.all(lo <= counts)) and bool(torch.all(counts <= hi))
+    i, j, e = K.screen_hits(a_d, py_d, cut_d, m, b=d_d, anchors=anc)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["screen_count"] == before["screen_count"] + 2
+    assert K.LAUNCHES["screen_extract"] == before["screen_extract"] + (
+        table_kind != "zero_hits")
+    pos = (i if anc is None else
+           torch.argsort(anc)[torch.searchsorted(torch.sort(anc).values, i)])
+    key = pos * m + j
+    assert bool(torch.all(key[1:] > key[:-1]))  # list order, no repeats
+    ri, rj, re = K.screen_hits_ref(a_d.double(), py64,
+                                   _scaled(cut_d, 1 - BAND), m, b=d64,
+                                   anchors=anc)
+    ci, cj, _ = K.screen_hits_ref(a_d.double(), py64,
+                                  _scaled(cut_d, 1 + BAND), m, b=d64,
+                                  anchors=anc)
+    got = set(zip(i.tolist(), j.tolist()))
+    assert set(zip(ci.tolist(), cj.tolist())) <= got
+    assert got <= set(zip(ri.tolist(), rj.tolist()))
+    if table_kind == "zero_hits":
+        assert len(got) == 0
+        return
+    ref = dict(zip(zip(ri.tolist(), rj.tolist()), re.tolist()))
+    want = np.array([ref[k] for k in zip(i.tolist(), j.tolist())])
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(e.cpu().numpy(), want, rtol=1e-4,
+                               atol=1e-6 * scale)
+    if table_kind == "keep_all":
+        ids_l = anchors.tolist()
+        assert len(got) == sum(m - 1 - x for x in ids_l)

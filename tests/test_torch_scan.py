@@ -143,11 +143,19 @@ def test_screen_AA_matches_oracle(tmp_path, mouse_geno, mouse_pheno,
 
 
 def test_unported_screens_raise(tmp_path, mouse_pheno, mouse_prefix, setup):
-    ag, var_com, _, _ = setup
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        remma_epiAA_eff(mouse_pheno, mouse_prefix, [ag, ag * ag], var_com,
-                        snp_lst_0=[0, 1, 2], out_file=str(tmp_path / "e"),
-                        device="cpu")
+    """The screens that raised NotImplementedError until the whole screen
+    family was ported (an anchor subset here) run, and keep their anchors'
+    rows of the full screen."""
+    ag, var_com, pymat, _ = setup
+    full, part = str(tmp_path / "full"), str(tmp_path / "part")
+    kw = {"var_app": 1e-6, "p_cut": 1e-5, "device": "cpu"}
+    remma_epiAA_eff(mouse_pheno, mouse_prefix, [ag, ag * ag], var_com,
+                    out_file=full, **kw)
+    remma_epiAA_eff(mouse_pheno, mouse_prefix, [ag, ag * ag], var_com,
+                    snp_lst_0=[0, 1, 2], out_file=part, **kw)
+    got, want = _load(part), _load(full)
+    assert len(got) > 10 and set(got[:, 0]) <= {0, 1, 2}
+    np.testing.assert_array_equal(got[:, :2], want[want[:, 0] <= 2, :2])
 
 
 def _workflow(pkg, workdir, **kw):
@@ -252,7 +260,8 @@ def test_random_pairs_match_jax(tmp_path, fn):
 
 def test_import_pulls_in_no_jax():
     code = ("import sys, gmat_tpu_torch, gmat_tpu_torch.scan.kernels, "
-            "gmat_tpu_torch.scan.pairs, gmat_tpu_torch.scan.single; "
+            "gmat_tpu_torch.scan.pairs, gmat_tpu_torch.scan.single, "
+            "gmat_tpu_torch.scan.screen, gmat_tpu_torch.scan.accel; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'gmat_tpu.')) or m == 'gmat_tpu']; "
             "assert not bad, bad")
