@@ -38,7 +38,18 @@
    calibration pairs), each with its own launch counts, table checks and
    stage times, and remma_epiAD_eff_parallel([100, 1]) against
    remma_epiAD_eff: the part's rows are the full table's rows of its
-   anchors, byte for byte.
+   anchors, byte for byte;
+11. on the yeast set, the uvlmm family (`uvlmm_phase`): the eigen REML,
+   wemai_multi_gmat with one GRM and em_mme to convergence, which must
+   reach the same REML maximum (rtol 1e-5); the other MME variants,
+   em_mme_multi and em_vmat at maxiter=5 (times per iteration); the
+   fixed-effect add/dom tests and their eigen twins over every SNP (eigen
+   vs direct at rtol 1e-7, 32 SNPs against a per-SNP GLS fit at 1e-8);
+   uvlmm_gwas_epiAA over 64 anchors (the planted pairs found, 16 rows
+   against a direct GLS fit); lm_snp_eff against lstsq, lm_pred;
+   wemai_multi_gmat_pred with 10% of the phenotypes removed and the BLUPs
+   against the MME solution; ginbreedcoef, shuffle_bed and the nearest-gene
+   annotation (the `uvlmm step times (s)` line).
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit, and the one before that lists each kernel
@@ -1029,6 +1040,311 @@ def single_snp(ctx):
     return times
 
 
+# the uvlmm family -------------------------------------------------------------
+
+UVLMM_RTOL = 1e-8  # fixed-effect tests and BLUPs against direct f64 fits
+
+
+def close(name, got, want, rtol, floor=0.0):
+    """got ≈ want at rtol, with an absolute floor of `floor`·max|want| for
+    the values that cancel to about 0, and NaN at the same places (a SNP
+    without variation has no test); returns the largest relative gap."""
+    import numpy as np
+
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    check(got.shape == want.shape, f"{name}: shape {got.shape} vs {want.shape}")
+    ok = np.isfinite(want)
+    check(bool(np.array_equal(np.isfinite(got), ok)) and ok.mean() > 0.99,
+          f"{name}: {int((~np.isfinite(got)).sum())} non-finite values, "
+          f"want {int((~ok).sum())}")
+    got, want = got[ok], want[ok]
+    diff = np.abs(got - want)
+    tol = rtol * np.abs(want) + floor * np.abs(want).max()
+    rel = diff / np.maximum(np.abs(want), 1e-300)
+    check(bool(np.all(diff <= tol)), f"{name}: {int((diff > tol).sum())} "
+          f"values off by up to {float(rel.max()):.3g} (rtol {rtol:g})")
+    return float(rel.max())
+
+
+def gls_last(lu, cols, y):
+    """The last coefficient of the GLS fit of y on `cols` (batch, n, k)
+    under V = LU, and its variance: one (k x k) inverse per fit, the
+    reference's loop (uvlmm_gwas.py:44-52 of the reference GMAT)."""
+    import torch
+
+    b, n, k = cols.shape
+    vi_c = torch.linalg.lu_solve(*lu, cols.transpose(0, 1).reshape(n, b * k)
+                                 ).reshape(n, b, k).transpose(0, 1)
+    cinv = torch.linalg.inv(cols.transpose(1, 2) @ vi_c)
+    beta = (cinv @ (vi_c.transpose(1, 2) @ y[:, None]))[..., 0]
+    return beta[:, -1], cinv[:, -1, -1]
+
+
+def write_gtf(path, m, genes=20):
+    """A GTF of `genes` genes of 300 bp over the yeast .bim's positions
+    1..m (chromosome 1), with a comment and a transcript row; returns the
+    (start, end) of each gene."""
+    spans = [(k * (m // genes) + 100, k * (m // genes) + 400)
+             for k in range(genes)]
+    with open(path, "w") as f:
+        f.write("#!genome-build chip_smoke\n")
+        for k, (a, b) in enumerate(spans):
+            f.write(f'1\tsmoke\tgene\t{a}\t{b}\t.\t+\t.\tgene_id "G{k}"; '
+                    f'gene_name "Gene{k}";\n')
+            f.write(f'1\tsmoke\ttranscript\t{a}\t{b}\t.\t+\t.\t'
+                    f'gene_id "G{k}"; gene_name "Gene{k}";\n')
+    return spans
+
+
+def uvlmm_phase(ctx):
+    """The uvlmm family at the yeast shape: the eigen REML, wemai with one
+    GRM and em_mme to convergence (the same REML maximum, rtol 1e-5), the
+    other MME variants at maxiter=5, em_mme_multi and em_vmat with
+    [ag, ag∘ag]; the fixed-effect add/dom tests and their eigen twins over
+    every SNP (eigen vs direct at rtol 1e-7, 32 SNPs against a per-SNP GLS
+    fit at 1e-8); uvlmm_gwas_epiAA over 64 anchors (the planted pairs, 16
+    rows against a direct GLS fit); lm_snp_eff (32 SNPs against lstsq) and
+    lm_pred; wemai_multi_gmat_pred with 10% of the phenotypes removed, and
+    _blup_effects against the MME solution (Henderson's identity);
+    ginbreedcoef, shuffle_bed and annotation_snp_nearest_gene.  Returns
+    {entry point: seconds or per-iteration details}."""
+    import numpy as np
+    import pandas as pd
+    import torch
+    from scipy import sparse
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.core.coding import additive_code, dominance_code
+    from gmat_tpu_torch.io.pheno import design_matrix
+    from gmat_tpu_torch.reml import mme
+    from gmat_tpu_torch.reml.wemai import _blup_effects, build_zgzt_stack
+
+    n, m = YEAST
+    dev = torch.device("cuda")
+    wd, prefix, pheno = ctx["workdir"], ctx["prefix"], ctx["pheno"]
+    ag, gmat_lst, var_com = ctx["gmat_lst"][0], ctx["gmat_lst"], ctx["var_com"]
+    dm = design_matrix(pheno, prefix)
+    y_d = torch.as_tensor(dm.y, device=dev)
+    x_d = torch.as_tensor(dm.xmat, device=dev)
+    times = {}
+
+    def run(name, fn, logger=None):
+        """fn()'s result; its wall time, and for a REML loop (`logger`) its
+        rounds and convergence line, go to times[name]."""
+        log, lg = RemlLog(), logging.getLogger(logger or "chip_smoke")
+        lg.addHandler(log)
+        lg.setLevel(logging.INFO)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            lg.removeHandler(log)
+        dt = time.perf_counter() - t0
+        times[name] = dt if logger is None else {
+            "iterations": log.rounds, "s": dt,
+            "s_per_iteration_setup_included": dt / max(log.rounds, 1),
+            "status": log.status}
+        return out
+
+    # REML: three algorithms, one maximum
+    var_eig, vecs, vals = run("uvlmm_varcom_eigen", lambda: G.uvlmm_varcom_eigen(
+        dm.y, dm.xmat, ag), "gmat_tpu_torch.reml.eigen")
+    check(vals.shape == (n, 1) and vecs.shape == (n, n), "eigen: shapes")
+    check(times["uvlmm_varcom_eigen"]["iterations"] < 100,
+          "uvlmm_varcom_eigen did not converge in 100 rounds")
+    ag_d = torch.as_tensor(ag, device=dev)
+    u = torch.as_tensor(vecs, device=dev)
+    recon = float(((u * torch.as_tensor(vals[:, 0], device=dev)) @ u.T
+                   - ag_d).abs().max() / ag_d.abs().max())
+    check(recon < 1e-10, f"eigen: U diag(λ) Uᵀ off G by {recon:.3g} of max|G|")
+    del vecs, u
+    var_w = run("wemai_multi_gmat[ag]", lambda: G.wemai_multi_gmat(
+        pheno, prefix, [ag], out_file=str(wd / "var_ag.txt")),
+        "gmat_tpu_torch.reml.wemai")
+    ag_inv = torch.linalg.inv(ag_d).cpu().numpy()
+    start = np.full(2, float(np.var(dm.y)) / 2)
+    var_em = run("em_mme", lambda: G.em_mme(
+        dm.y, dm.xmat, ag_inv, init=start, maxiter=3000, cc=1e-10),
+        "gmat_tpu_torch.reml.mme")
+    check(times["em_mme"]["status"] == "Variances converged.",
+          f"em_mme did not converge in {times['em_mme']['iterations']} rounds")
+    print(f"uvlmm REML (g, e): eigen {var_eig.tolist()}, wemai "
+          f"{var_w.tolist()}, em_mme {var_em.tolist()}", flush=True)
+    close("wemai vs eigen REML", var_w, var_eig, 1e-5)
+    close("em_mme vs eigen REML", var_em, var_eig, 1e-5)
+    for name in ("pxem_mme", "ai_mme", "emai_mme", "pxemai_mme"):
+        got = run(name, lambda: getattr(G, name)(dm.y, dm.xmat, ag_inv,
+                                                 maxiter=5),
+                  "gmat_tpu_torch.reml.mme")
+        times[name]["var"] = got.tolist()
+        check(times[name]["iterations"] >= 1, f"{name}: no iteration")
+    axa_inv = torch.linalg.inv(ag_d * ag_d).cpu().numpy()
+    eye = sparse.identity(n, format="csr")
+    got = run("em_mme_multi", lambda: mme.em_mme_multi(
+        dm.y, dm.xmat, [eye, eye], [ag_inv, axa_inv], maxiter=5),
+        "gmat_tpu_torch.reml.mme")
+    times["em_mme_multi"]["var"] = got.tolist()
+    check(bool(np.all(np.isfinite(got))) and len(got) == 3, "em_mme_multi")
+    got = run("em_vmat", lambda: mme.em_vmat(
+        dm.y, dm.xmat, [eye, eye], [ag, ag * ag], maxiter=5),
+        "gmat_tpu_torch.reml.mme")
+    times["em_vmat"]["var"] = got.tolist()
+    check(bool(np.all(np.isfinite(got))) and len(got) == 3, "em_vmat")
+    del ag_inv, axa_inv
+
+    # fixed-effect GWAS, direct and eigen, against a per-SNP GLS fit
+    tabs = {}
+    for name, grms in (("uvlmm_gwas_add", [ag]), ("uvlmm_gwas_add_eigen", ag),
+                       ("uvlmm_gwas_dom", [ag]), ("uvlmm_gwas_dom_eigen", ag)):
+        tabs[name] = run(name, lambda: getattr(G, name)(
+            dm.y, dm.xmat, grms, var_eig, prefix, out_file=str(wd / name)))
+        check(len(tabs[name]) == m, f"{name}: {len(tabs[name])} rows")
+        check(pd.read_csv(wd / name, sep=" ").shape == tabs[name].shape,
+              f"{name}: the file differs from the table")
+    g_d = torch.as_tensor(G.read_plink(prefix), device=dev)
+    # a dominance effect is estimable only where all three genotypes occur
+    # (with two, the het indicator is collinear with the additive code)
+    full = torch.stack([(g_d == v).any(0) for v in (0.0, 1.0, 2.0)]
+                       ).all(0).cpu().numpy()
+    check(full.mean() > 0.99, f"{int((~full).sum())} SNPs lack a genotype")
+    for kind, cols, keep in (
+            ("add", ("eff_val", "scale_val", "chi_val"), slice(None)),
+            ("dom", ("eff_val", "chi_val"), full)):
+        for col in cols:
+            close(f"{kind} eigen vs direct {col}",
+                  tabs[f"uvlmm_gwas_{kind}_eigen"][col].to_numpy()[keep],
+                  tabs[f"uvlmm_gwas_{kind}"][col].to_numpy()[keep], 1e-7,
+                  floor=1e-12)
+    times["snps_without_a_genotype"] = int((~full).sum())
+    mat_a, mat_d = additive_code(g_d)[0], dominance_code(g_d)[0]
+    vmat = var_eig[0] * ag_d + var_eig[1] * torch.eye(n, dtype=torch.float64,
+                                                      device=dev)
+    lu = torch.linalg.lu_factor(vmat)
+    tested = np.flatnonzero(full)
+    snps = torch.as_tensor(np.random.default_rng(SEED).choice(
+        tested, 32, replace=False), device=dev)
+    xb = x_d.expand(32, -1, -1)
+    for kind, cols in (("add", [mat_a[:, snps].T[..., None]]),
+                       ("dom", [mat_a[:, snps].T[..., None],
+                                mat_d[:, snps].T[..., None]])):
+        eff, var = gls_last(lu, torch.cat([xb] + cols, dim=2), y_d)
+        tab = tabs[f"uvlmm_gwas_{kind}"].iloc[snps.cpu().numpy()]
+        close(f"{kind} vs GLS eff", tab["eff_val"], eff.cpu(), UVLMM_RTOL)
+        close(f"{kind} vs GLS chi", tab["chi_val"], (eff * eff / var).cpu(),
+              UVLMM_RTOL)
+
+    # the interaction scan over 64 anchors, the planted pairs among them
+    planted = ctx["planted"]
+    rng = np.random.default_rng(SEED + 1)
+    first = sorted({a for a, _ in planted})
+    rest = [a for a in rng.permutation(m - 1).tolist() if a not in first]
+    anchors = rng.permutation(first + rest[:64 - len(first)]).tolist()
+    vmat2 = (var_com[0] * ag_d + var_com[1] * ag_d * ag_d
+             + var_com[2] * torch.eye(n, dtype=torch.float64, device=dev))
+    epi = run("uvlmm_gwas_epiAA", lambda: G.uvlmm_gwas_epiAA(
+        dm.y, dm.xmat, gmat_lst, var_com, prefix, snp_lst_0=anchors,
+        p_cut=1e-5, out_file=str(wd / "uvlmm_epiAA")))
+    check(list(epi.columns) == ["snpi", "snpj", "snp_eff", "p_val"],
+          f"epiAA columns {list(epi.columns)}")
+    ii, jj = epi["snpi"].to_numpy(), epi["snpj"].to_numpy()
+    pos = {a: k for k, a in enumerate(anchors)}
+    order = np.array([pos.get(int(a), -1) for a in ii])
+    check(len(epi) > 0 and bool(np.all(order >= 0)) and bool(np.all(jj > ii))
+          and bool(np.all((order[1:] > order[:-1])
+                          | ((order[1:] == order[:-1]) & (jj[1:] > jj[:-1])))),
+          "epiAA rows: not anchors in list order, partners ascending")
+    check(bool(np.all(epi["p_val"].to_numpy() < 1e-5)), "epiAA: p_val")
+    found = set(zip(ii.tolist(), jj.tolist()))
+    check(set(planted) <= found, f"epiAA: planted pairs "
+          f"{sorted(set(planted) - found)} missing")
+    pick = np.sort(np.random.default_rng(SEED + 2).choice(
+        len(epi), min(16, len(epi)), replace=False))
+    si = mat_a[:, torch.as_tensor(ii[pick], device=dev)].T[..., None]
+    sj = mat_a[:, torch.as_tensor(jj[pick], device=dev)].T[..., None]
+    eff, var = gls_last(torch.linalg.lu_factor(vmat2),
+                        torch.cat([x_d.expand(len(pick), -1, -1), si, sj,
+                                   si * sj], dim=2), y_d)
+    from scipy.stats import chi2
+
+    p_ref = chi2.sf((eff * eff / var).cpu().numpy(), 1)
+    close("epiAA vs GLS eff", epi["snp_eff"].to_numpy()[pick], eff.cpu(),
+          UVLMM_RTOL)
+    close("epiAA vs GLS p", epi["p_val"].to_numpy()[pick], p_ref, UVLMM_RTOL)
+    times["uvlmm_gwas_epiAA_rows"] = len(epi)
+    del mat_d, vmat, vmat2, lu
+
+    # OLS
+    lm = run("lm_snp_eff", lambda: G.lm_snp_eff(pheno, prefix,
+                                                out_file=str(wd / "lm")))
+    cols = torch.cat([x_d.expand(32, -1, -1), g_d[:, snps].T[..., None]], 2)
+    ref = torch.linalg.lstsq(cols, y_d.expand(32, -1)[..., None]
+                             ).solution[:, -1, 0]
+    close("lm_snp_eff vs lstsq", lm["eff"].to_numpy()[snps.cpu().numpy()],
+          ref.cpu(), UVLMM_RTOL)
+    pred = run("lm_pred", lambda: G.lm_pred(pheno, prefix, ag,
+                                            out_file=str(wd / "lm_pred")))
+    check(pred.shape == (n,) and bool(np.all(np.isfinite(pred))), "lm_pred")
+    del g_d, mat_a
+
+    # prediction with 10% of the phenotypes removed
+    lines = open(pheno).read().splitlines(keepends=True)
+    drop = set(np.random.default_rng(SEED + 3).choice(
+        n, n // 10, replace=False).tolist())
+    gaps = str(wd / "pheno_gaps")
+    with open(gaps, "w") as f:
+        f.writelines(ln for k, ln in enumerate(lines) if k not in drop)
+    run("wemai_multi_gmat_pred", lambda: G.wemai_multi_gmat_pred(
+        gaps, prefix, gmat_lst, out_file=str(wd / "pred")),
+        "gmat_tpu_torch.reml.wemai")
+    check(times["wemai_multi_gmat_pred"]["status"] == "Variances converged.",
+          "wemai_multi_gmat_pred: REML did not converge")
+    rand = np.loadtxt(wd / "pred.rand_eff")
+    check(rand.shape == (n, len(gmat_lst)) and bool(np.all(np.isfinite(rand))),
+          f"pred.rand_eff: shape {rand.shape} or non-finite values")
+    var_t = torch.as_tensor(var_eig, device=dev)
+    u_blup = _blup_effects(var_t, y_d, x_d, build_zgzt_stack(dm, [ag], dev),
+                           ag_d[None], dm.rec_index(dev), dm.n_col)[:, 0]
+    setup = mme._mme_setup(dm.y, dm.xmat,
+                           torch.linalg.inv(ag_d).cpu().numpy(), dev)
+    u_mme = mme._mme_solve(var_t, *setup[:5])[1][setup[5]:]
+    close("_blup_effects vs the MME solution", u_blup.cpu(), u_mme.cpu(),
+          UVLMM_RTOL, floor=1e-12)
+    del setup, u_mme
+
+    # GRM, I/O and annotation parts
+    inb = run("ginbreedcoef", lambda: G.ginbreedcoef(prefix))
+    check(len(inb) == n and bool(np.all(np.isfinite(
+        inb[["homo_F", "grm_F1", "grm_F2"]].to_numpy()))), "ginbreedcoef")
+    shuf = run("shuffle_bed", lambda: G.shuffle_bed(prefix, seed=SEED))
+    a = torch.as_tensor(G.read_plink(prefix), device=dev)
+    b = torch.as_tensor(G.read_plink(shuf), device=dev)
+    check(all(bool(torch.equal((a == v).sum(0), (b == v).sum(0)))
+              for v in (0.0, 1.0, 2.0)) and not bool(torch.equal(a, b)),
+          "shuffle_bed: a column is not a permutation of its input")
+    del a, b
+    spans = write_gtf(wd / "genes.gtf", m)
+    info = run("gtf_to_gene_info",
+               lambda: G.gtf_to_gene_info(str(wd / "genes.gtf")))
+    near = run("annotation_snp_nearest_gene",
+               lambda: G.annotation_snp_nearest_gene(prefix, info,
+                                                     max_distance=2000))
+    with open(info) as f:
+        check(sum(1 for _ in f) == len(spans), "gene_info: row count")
+    snp_pos = np.arange(1, m + 1)
+    within = sum(int(((snp_pos > s) & (snp_pos < e)).sum()) for s, e in spans)
+    # a SNP inside a gene is also closer than 2000 bp to its ends
+    close_by = sum(int((np.minimum(np.abs(snp_pos - s), np.abs(snp_pos - e))
+                        < 2000).sum()) for s, e in spans)
+    with open(near) as f:
+        last = [ln.split()[-1] for ln in f]
+    check(last.count("within") == within and len(last) == close_by,
+          f"nearby_genes: {len(last)} rows ({last.count('within')} within), "
+          f"want {close_by} ({within})")
+    return times
+
+
 def main():
     import torch
 
@@ -1103,10 +1419,20 @@ def main():
         t0 = time.perf_counter()
         family_launches, family_stages = screen_family(K, ctx)
         phase_s["screen_family"] = time.perf_counter() - t0
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        uvlmm_times = uvlmm_phase(ctx)
+        phase_s["uvlmm"] = time.perf_counter() - t0
+        uvlmm_launches = dict(K.LAUNCHES)
     times["remma_epiAA_parallel"] = part["wall_s"]
     times.update({k: v["wall_s"] for k, v in family_stages.items()})
     print(f"screen-family launches {json.dumps(family_launches)}", flush=True)
     print(f"main-path step times (s): {json.dumps(times)}", flush=True)
+    print(f"uvlmm launches {json.dumps(uvlmm_launches)} (dense f64 "
+          "linear algebra on cuBLAS/cuSOLVER: no hand kernel on this path)",
+          flush=True)
+    print(f"uvlmm step times (s) {json.dumps(uvlmm_times)}", flush=True)
     print(f"phase times (s): {json.dumps(phase_s)}", flush=True)
 
     yeast = cases[0]

@@ -13,17 +13,56 @@ The four-step workflow: `agmat` -> `wemai_multi_gmat` ->
 epistasis screen family `remma_epi{AA,AD,DD}_{eff,approx,maf_eff,
 maf_approx}[_parallel]` and `remma_epiAA_eff_gpu`, the exhaustive scans
 `remma_epiAA/AD/DD[_parallel]`, the pair tests `remma_epi*_pair` and the
-single-SNP `remma_add` / `remma_dom`.
+single-SNP `remma_add` / `remma_dom`.  The uvlmm family: the eigen REML
+`uvlmm_varcom_eigen`, the MME REML variants `em_mme` … `pxemai_mme`, the
+fixed-effect tests `uvlmm_gwas_{add,dom}[_eigen]` and `uvlmm_gwas_epiAA`,
+OLS `lm_snp_eff` / `lm_pred`, and prediction `wemai_multi_gmat_pred`;
+beside them `ginbreedcoef`, `impute_geno`, `shuffle_bed`, the
+`design_matrix_wemai_multi_gmat[_pred]` tuples, `gtf_to_gene_info` and
+`annotation_snp_nearest_gene`.
 
-Not ported yet (ROADMAP.md queue 1): `reml/eigen.py`, `reml/mme.py` and
-`scan/fixed_gwas.py` (item 14); longwas (15); the periphery, the
+Not ported yet (ROADMAP.md queue 1): longwas (item 15); the periphery, the
 array-level `_remma_*` API and the CLI (16); the `mesh=` argument (17).
 """
 from gmat_tpu_torch import config  # noqa: F401  -- sets the TF32 policy first
-from gmat_tpu_torch.grm.grm import agmat, dgmat_as  # noqa: F401
-from gmat_tpu_torch.io.bed import Bed, read_plink, write_bed  # noqa: F401
-from gmat_tpu_torch.reml.wemai import wemai_multi_gmat  # noqa: F401
-from gmat_tpu_torch.scan.annotation import annotation_snp_pos  # noqa: F401
+from gmat_tpu_torch.grm.grm import agmat, dgmat_as, ginbreedcoef  # noqa: F401
+from gmat_tpu_torch.io.bed import (  # noqa: F401
+    Bed,
+    impute_geno,
+    read_plink,
+    shuffle_bed,
+    write_bed,
+)
+from gmat_tpu_torch.io.pheno import (  # noqa: F401
+    design_matrix_wemai_multi_gmat,
+    design_matrix_wemai_multi_gmat_pred,
+)
+from gmat_tpu_torch.reml.wemai import (  # noqa: F401
+    wemai_multi_gmat,
+    wemai_multi_gmat_pred,
+)
+from gmat_tpu_torch.reml.eigen import uvlmm_varcom_eigen  # noqa: F401
+from gmat_tpu_torch.reml.mme import (  # noqa: F401
+    ai_mme,
+    em_mme,
+    emai_mme,
+    pxem_mme,
+    pxemai_mme,
+)
+from gmat_tpu_torch.scan.fixed_gwas import (  # noqa: F401
+    lm_pred,
+    lm_snp_eff,
+    uvlmm_gwas_add,
+    uvlmm_gwas_add_eigen,
+    uvlmm_gwas_dom,
+    uvlmm_gwas_dom_eigen,
+    uvlmm_gwas_epiAA,
+)
+from gmat_tpu_torch.scan.annotation import (  # noqa: F401
+    annotation_snp_nearest_gene,
+    annotation_snp_pos,
+    gtf_to_gene_info,
+)
 from gmat_tpu_torch.scan.pairs import (  # noqa: F401
     remma_epiAA,
     remma_epiAA_pair,

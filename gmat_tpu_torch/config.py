@@ -17,6 +17,7 @@ is CUDA.  Nothing picks the CPU on its own: the tests pass
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEFAULT_DEVICE = torch.device("cuda")
@@ -30,3 +31,8 @@ torch.backends.cudnn.allow_tf32 = False
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device, `DEFAULT_DEVICE` when None."""
     return DEFAULT_DEVICE if device is None else torch.device(device)
+
+
+def as_exact(a, device) -> torch.Tensor:
+    """`a` (array-like) as a float64 tensor on `device`."""
+    return torch.as_tensor(np.asarray(a, dtype=np.float64), device=device)

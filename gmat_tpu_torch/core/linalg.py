@@ -27,3 +27,21 @@ def projection_pieces(vinv, xmat):
 def sym_trace_product(a, b):
     """tr(A·B) for symmetric A, B as the Frobenius inner product."""
     return torch.sum(a * b)
+
+
+def weighted_ai_step(var, fd, ai, em, weights):
+    """The REML update ((1-w)·AI + w·EM)⁻¹ fd for the first weight w in
+    `weights` that keeps every variance positive, the last weight when none
+    does; returns (delta, index of w).
+
+    All candidates are one batched `solve_ex`: a singular blend gives
+    inf/NaN, which the positivity test drops (where `solve` would raise),
+    and nothing waits for the device."""
+    w = weights[:, None, None]
+    blends = (1.0 - w) * ai[None] + w * em[None]
+    deltas = torch.linalg.solve_ex(
+        blends, fd[None, :, None].expand(len(weights), -1, 1))[0][..., 0]
+    ok = torch.amin(var[None, :] + deltas, dim=1) > 0.0
+    idx = torch.where(torch.any(ok), torch.argmax(ok.to(torch.int8)),
+                      torch.tensor(len(weights) - 1, device=ok.device))
+    return deltas[idx], idx

@@ -1,4 +1,5 @@
-"""Genomic relationship matrices (additive / dominance).
+"""Genomic relationship matrices (additive / dominance) and genomic
+inbreeding coefficients.
 
 Counterpart of `gmat_tpu/grm/grm.py`: K = M Mᵀ / scale as one float64 Gram
 product (`torch.matmul`, as the JAX package leaves it to XLA), diagonal
@@ -74,3 +75,38 @@ def dgmat_as(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
     Returns (kin, kin_inv) as host arrays."""
     return _run_grm(bed_prefix, "dom", inv, small_val, out_fmt, impute_seed,
                     device)
+
+
+def _inbreed_stats(geno):
+    """Homozygosity F, GRM-diagonal F1 (common scale) and F2 (per-SNP
+    scale) of each individual; geno (n, m) float64."""
+    n, m = geno.shape
+    het = torch.sum(torch.abs(geno - 1.0) < 0.01, dim=1).to(geno.dtype)
+    homo_f = 1.0 - het / m
+    freq = torch.sum(geno, dim=0) / (2.0 * n)
+    scale_vec = 2.0 * freq * (1.0 - freq)
+    scale = torch.sum(scale_vec)
+    cen = geno - 2.0 * freq[None, :]
+    grm_f1 = torch.sum(cen * cen, dim=1) / scale - 1.0
+    grm_f2 = torch.sum(cen * cen / scale_vec[None, :], dim=1) / m - 1.0
+    return homo_f, grm_f1, grm_f2
+
+
+def ginbreedcoef(bed_prefix: str, impute_seed: int = 0, device=None):
+    """Genomic inbreeding coefficients; writes `<prefix>.ginbreedcoef`
+    (columns id homo_F grm_F1 grm_F2) and returns them as a DataFrame."""
+    import pandas as pd
+
+    bed = Bed(bed_prefix)
+    geno = bed.read()
+    if np.any(np.isnan(geno)):
+        geno = impute_geno(geno, seed=impute_seed)
+    stats = _inbreed_stats(torch.as_tensor(geno, dtype=EXACT_DTYPE,
+                                           device=resolve_device(device)))
+    homo_f, grm_f1, grm_f2 = (a.cpu().numpy() for a in stats)
+    df = pd.DataFrame(
+        {"id": np.array(bed.fam["iid"]), "homo_F": homo_f,
+         "grm_F1": grm_f1, "grm_F2": grm_f2}
+    )
+    df.to_csv(bed_prefix + ".ginbreedcoef", sep=" ", header=True, index=False)
+    return df

@@ -193,3 +193,17 @@ def write_bed(prefix: str, geno: np.ndarray, bim: pd.DataFrame | None = None,
             }
         )
     fam.to_csv(prefix + ".fam", sep="\t", header=False, index=False)
+
+
+def shuffle_bed(bed_prefix: str, seed: int = 0) -> str:
+    """Permute genotypes independently per SNP with a seeded numpy generator
+    (the JAX package's draws, so the files are byte-identical), writing
+    `<prefix>_shuffle.*`; returns that prefix."""
+    bed = Bed(bed_prefix)
+    geno = bed.read()
+    rng = np.random.default_rng(seed)
+    for j in range(geno.shape[1]):
+        rng.shuffle(geno[:, j])
+    out_prefix = bed_prefix + "_shuffle"
+    write_bed(out_prefix, geno, bim=bed.bim, fam=bed.fam)
+    return out_prefix

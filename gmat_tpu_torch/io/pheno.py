@@ -115,3 +115,53 @@ def design_matrix(pheno_file: str, bed_prefix: str) -> DesignMatrices:
         rec_ids=np.asarray(rec_ids, dtype=np.int32),
         n_col=len(id_slot),
     )
+
+
+def design_matrix_pred(pheno_file: str, bed_prefix: str) -> DesignMatrices:
+    """Prediction variant: un-phenotyped individuals keep (empty) Z columns,
+    in .fam order, so that BLUPs are produced for them."""
+    recs = _parse_pheno(pheno_file)
+    keys = _fam_keys(bed_prefix)
+    y, xmat, rec_ids = [], [], []
+    id_slot: dict[str, int] = {}
+    n_col = 0
+    for key, iid in keys:
+        if key in recs:
+            for arr in recs[key]:
+                y.append(float(arr[-1]))
+                xmat.append([float(v) for v in arr[2:-1]])
+                if iid not in id_slot:
+                    id_slot[iid] = n_col
+                    n_col += 1
+                rec_ids.append(id_slot[iid])
+        else:
+            n_col += 1
+    return DesignMatrices(
+        y=np.asarray(y),
+        xmat=np.asarray(xmat, dtype=float).reshape(len(y), -1),
+        rec_ids=np.asarray(rec_ids, dtype=np.int32),
+        n_col=n_col,
+    )
+
+
+def _dm_to_tuple(dm: DesignMatrices):
+    from scipy import sparse
+
+    n_rec = len(dm.rec_ids)
+    zmat = sparse.csr_matrix(
+        (np.ones(n_rec), (np.arange(n_rec), dm.rec_ids)),
+        shape=(n_rec, dm.n_col),
+    )
+    return dm.y.reshape(-1, 1), dm.xmat, zmat
+
+
+def design_matrix_wemai_multi_gmat(pheno_file: str, bed_prefix: str):
+    """Reference-name API: (y (n, 1), X dense, Z a scipy CSR
+    record->individual incidence)."""
+    return _dm_to_tuple(design_matrix(pheno_file, bed_prefix))
+
+
+def design_matrix_wemai_multi_gmat_pred(pheno_file: str, bed_prefix: str):
+    """Reference-name API of the prediction variant: empty Z columns for
+    un-phenotyped individuals."""
+    return _dm_to_tuple(design_matrix_pred(pheno_file, bed_prefix))

@@ -6,8 +6,13 @@ Counterpart of the float64 path of `gmat_tpu/reml/wemai.py`:
 - per iteration: V, log|V|, V⁻¹ (one Cholesky), P, -2logL, gradient, AI
   matrix, EM Hessian diag(n/σ⁴), then the 0.01-step weight search picking
   the first w ∈ {0, .01, …, 1} whose blended update keeps all variances
-  positive — the 101 candidate systems are one batched `torch.linalg.solve`;
+  positive — the 101 candidate systems are one batched solve
+  (`core.linalg.weighted_ai_step`);
 - dual convergence on ‖Δ‖/‖σ²‖ < cc_par and ‖∇‖ < cc_gra.
+
+The JAX package's `precision=` argument (a mixed-precision inverse for the
+TPU, where float64 is emulated) has no counterpart: Hopper has native
+FP64, so every step here is float64.
 """
 from __future__ import annotations
 
@@ -17,8 +22,10 @@ import numpy as np
 import torch
 
 from gmat_tpu_torch.config import EXACT_DTYPE, resolve_device
-from gmat_tpu_torch.core.linalg import chol_inv_logdet, projection_pieces
-from gmat_tpu_torch.io.pheno import DesignMatrices, design_matrix
+from gmat_tpu_torch.core.linalg import (chol_inv_logdet, projection_pieces,
+                                         weighted_ai_step)
+from gmat_tpu_torch.io.pheno import (DesignMatrices, design_matrix,
+                                     design_matrix_pred)
 
 logger = logging.getLogger(__name__)
 
@@ -60,15 +67,7 @@ def _reml_step(var_com, y, xmat, zg_stack):
 
     weights = torch.as_tensor(_WEIGHTS, dtype=var_com.dtype,
                               device=var_com.device)
-    w = weights[:, None, None]
-    blends = (1.0 - w) * ai[None] + w * em[None]            # (101, k+1, k+1)
-    deltas = torch.linalg.solve(
-        blends, fd[None, :, None].expand(len(_WEIGHTS), -1, 1))[..., 0]
-    cands = var_com[None, :] + deltas
-    valid = torch.amin(cands, dim=1) > 0.0
-    idx = torch.where(torch.any(valid), torch.argmax(valid.to(torch.int8)),
-                      torch.tensor(100, device=valid.device))
-    delta = deltas[idx]
+    delta, idx = weighted_ai_step(var_com, fd, ai, em, weights)
     var_new = var_com + delta
 
     cc_par = torch.sqrt(torch.sum(delta * delta) / torch.sum(var_new * var_new))
@@ -114,4 +113,47 @@ def wemai_multi_gmat(pheno_file: str, bed_prefix: str, gmat_lst, init=None,
     var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
                          cc_par=cc_par, cc_gra=cc_gra, device=device)
     np.savetxt(out_file, var_com)
+    return var_com
+
+
+def _blup_effects(var_com, y, xmat, zg_stack, gmat_stack, rec_ids, n_col):
+    """BLUPs of the random effects, u_k = σ²_k G_k Zᵀ P y, as an
+    (n_col, k) tensor."""
+    vinv, _ = chol_inv_logdet(_vmat(var_com, zg_stack))
+    pmat, _ = projection_pieces(vinv, xmat)
+    py = pmat @ y
+    zpy = torch.zeros(n_col, dtype=py.dtype, device=py.device).index_add_(
+        0, rec_ids, py)
+    return torch.einsum("k,kij,j->ik", var_com[:-1], gmat_stack, zpy)
+
+
+def wemai_multi_gmat_pred(pheno_file: str, bed_prefix: str, gmat_lst,
+                          init=None, maxiter: int = 200, cc_par: float = 1.0e-8,
+                          cc_gra: float = 1.0e-6,
+                          out_file: str = "wemai_multi_gmat_pred",
+                          device=None):
+    """REML + BLUP of the random effects over every genotyped individual,
+    phenotyped or not; writes `<out>.var` and `<out>.rand_eff` (one row per
+    .fam individual, one column per GRM) and returns the variances.
+
+    Documented deviation, as in the JAX package: the reference builds the
+    prediction's P from V where its estimation path uses V⁻¹; here P is
+    V⁻¹ − V⁻¹X(XᵀV⁻¹X)⁻¹XᵀV⁻¹.  There is no `precision=` argument (see the
+    module docstring)."""
+    dev = resolve_device(device)
+    dm = design_matrix_pred(pheno_file, bed_prefix)
+    var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
+                         cc_par=cc_par, cc_gra=cc_gra, device=dev)
+    np.savetxt(out_file + ".var", var_com)
+    rand_eff = _blup_effects(
+        torch.as_tensor(var_com, device=dev),
+        torch.as_tensor(dm.y, dtype=EXACT_DTYPE, device=dev),
+        torch.as_tensor(dm.xmat, dtype=EXACT_DTYPE, device=dev),
+        build_zgzt_stack(dm, gmat_lst, dev),
+        torch.stack([torch.as_tensor(g, dtype=EXACT_DTYPE, device=dev)
+                     for g in gmat_lst]),
+        dm.rec_index(dev),
+        dm.n_col,
+    )
+    np.savetxt(out_file + ".rand_eff", rand_eff.cpu().numpy())
     return var_com

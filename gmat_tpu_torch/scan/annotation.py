@@ -1,5 +1,10 @@
-"""Result annotation (counterpart of `gmat_tpu/scan/annotation.py`)."""
+"""Result annotation (counterpart of `gmat_tpu/scan/annotation.py`):
+result rows joined to .bim SNP info, GTF gene rows, and the genes near
+each SNP.  Host text I/O; the files are byte-identical to the JAX
+package's."""
 from __future__ import annotations
+
+import re
 
 
 def annotation_snp_pos(res_file: str, bed_prefix: str, p_cut: float = 1,
@@ -47,3 +52,50 @@ def annotation_snp_pos(res_file: str, bed_prefix: str, p_cut: float = 1,
                                count=len(anno))
         anno[unlinked].to_csv(res_file + ".anno.ld", sep=" ", index=False)
     return 0
+
+
+def gtf_to_gene_info(gtf_file: str) -> str:
+    """Gene rows of a GTF as `chrom start end strand gene_id gene_name`
+    lines in `<gtf>.gene_info`; returns that path."""
+    out = gtf_file + ".gene_info"
+    with open(gtf_file) as fin, open(out, "w") as fout:
+        for line in fin:
+            if "#" in line:
+                continue
+            arr = line.split()
+            if len(arr) > 2 and arr[2] == "gene":
+                m = re.search(r'gene_id\s+"(.+?)".+gene_name\s+"(.+?)"', line,
+                              re.I)
+                if m:
+                    fout.write(
+                        " ".join([arr[0], arr[3], arr[4], arr[6],
+                                  m.group(1), m.group(2)]) + "\n"
+                    )
+    return out
+
+
+def annotation_snp_nearest_gene(bed_prefix: str, gene_file: str,
+                                max_distance: int = 150000) -> str:
+    """Each .bim SNP beside every gene of its chromosome that contains it
+    ("within") or lies closer than `max_distance` bp (the distance), in
+    `<prefix>.nearby_genes`; returns that path."""
+    gene_info: dict[str, list[list[str]]] = {}
+    with open(gene_file) as fin:
+        for line in fin:
+            arr = line.split()
+            gene_info.setdefault(arr[0], []).append(arr)
+    out = bed_prefix + ".nearby_genes"
+    with open(bed_prefix + ".bim") as fin, open(out, "w") as fout:
+        for line in fin:
+            snp_line = line.strip()
+            arr = line.split()
+            snp_pos = int(arr[3])
+            for gene in gene_info.get(arr[0], []):
+                start, end = int(gene[1]), int(gene[2])
+                if snp_pos > start and snp_pos < end:
+                    fout.write(f"{snp_line} {' '.join(gene)} within\n")
+                else:
+                    distance = min(abs(snp_pos - start), abs(snp_pos - end))
+                    if distance < max_distance:
+                        fout.write(f"{snp_line} {' '.join(gene)} {distance}\n")
+    return out
