@@ -49,7 +49,19 @@
    against a direct GLS fit); lm_snp_eff against lstsq, lm_pred;
    wemai_multi_gmat_pred with 10% of the phenotypes removed and the BLUPs
    against the MME solution; ginbreedcoef, shuffle_bed and the nearest-gene
-   annotation (the `uvlmm step times (s)` line).
+   annotation (the `uvlmm step times (s)` line);
+12. the longwas family (`longwas_phase`) on tests/data/mouse_long at full
+   width (1,212 ids, 11,833 SNPs, 16 time points, 19,392 unbalanced
+   records), the kinship from agmat: balance_varcom (5 rounds against
+   tests/golden at rtol 1e-6, then to convergence); balance_longwas_trans
+   and _fixed over every SNP, cold and warm, the first 30 rows against the
+   golden at the JAX tests' tolerances; the full-cohort unbalance_varcom
+   (3 rounds, rtol 1e-5) and unbalance_longwas_fixed/_trans over every SNP,
+   16 seeded SNPs against direct f64 fits at rtol 1e-8; the 150-id subset
+   and the permutation twins against their goldens, the balance-trans
+   twin's files byte for byte under one seed, two full-panel replicates of
+   each trans twin timed; no hand kernel may launch (the `longwas step
+   times (s)`, `longwas rates (SNPs/s)` and peak-memory lines).
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit, and the one before that lists each kernel
@@ -67,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -657,7 +670,7 @@ class RemlLog(logging.Handler):
         msg = record.getMessage()
         if msg.startswith("Round "):
             self.rounds += 1
-        elif "converged" in msg:
+        elif "converged" in msg.lower():
             self.status = msg
 
 
@@ -1045,10 +1058,11 @@ def single_snp(ctx):
 UVLMM_RTOL = 1e-8  # fixed-effect tests and BLUPs against direct f64 fits
 
 
-def close(name, got, want, rtol, floor=0.0):
+def close(name, got, want, rtol, floor=0.0, atol=0.0):
     """got ≈ want at rtol, with an absolute floor of `floor`·max|want| for
-    the values that cancel to about 0, and NaN at the same places (a SNP
-    without variation has no test); returns the largest relative gap."""
+    the values that cancel to about 0 (or `atol`, numpy's allclose rule of
+    the JAX tests), and NaN at the same places (a SNP without variation
+    has no test); returns the largest relative gap."""
     import numpy as np
 
     got, want = np.asarray(got, float), np.asarray(want, float)
@@ -1059,7 +1073,7 @@ def close(name, got, want, rtol, floor=0.0):
           f"want {int((~ok).sum())}")
     got, want = got[ok], want[ok]
     diff = np.abs(got - want)
-    tol = rtol * np.abs(want) + floor * np.abs(want).max()
+    tol = rtol * np.abs(want) + floor * np.abs(want).max() + atol
     rel = diff / np.maximum(np.abs(want), 1e-300)
     check(bool(np.all(diff <= tol)), f"{name}: {int((diff > tol).sum())} "
           f"values off by up to {float(rel.max()):.3g} (rtol {rtol:g})")
@@ -1096,6 +1110,29 @@ def write_gtf(path, m, genes=20):
     return spans
 
 
+def run_step(times, name, fn, logger=None):
+    """fn()'s result; its wall time, and for a REML loop (`logger`) its
+    rounds and convergence line, go to times[name]."""
+    import torch
+
+    log, lg = RemlLog(), logging.getLogger(logger or "chip_smoke")
+    lg.addHandler(log)
+    lg.setLevel(logging.INFO)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        lg.removeHandler(log)
+    dt = time.perf_counter() - t0
+    times[name] = dt if logger is None else {
+        "iterations": log.rounds, "s": dt,
+        "s_per_iteration_setup_included": dt / max(log.rounds, 1),
+        "status": log.status}
+    return out
+
+
 def uvlmm_phase(ctx):
     """The uvlmm family at the yeast shape: the eigen REML, wemai with one
     GRM and em_mme to convergence (the same REML maximum, rtol 1e-5), the
@@ -1128,25 +1165,7 @@ def uvlmm_phase(ctx):
     x_d = torch.as_tensor(dm.xmat, device=dev)
     times = {}
 
-    def run(name, fn, logger=None):
-        """fn()'s result; its wall time, and for a REML loop (`logger`) its
-        rounds and convergence line, go to times[name]."""
-        log, lg = RemlLog(), logging.getLogger(logger or "chip_smoke")
-        lg.addHandler(log)
-        lg.setLevel(logging.INFO)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-        finally:
-            lg.removeHandler(log)
-        dt = time.perf_counter() - t0
-        times[name] = dt if logger is None else {
-            "iterations": log.rounds, "s": dt,
-            "s_per_iteration_setup_included": dt / max(log.rounds, 1),
-            "status": log.status}
-        return out
+    run = partial(run_step, times)
 
     # REML: three algorithms, one maximum
     var_eig, vecs, vals = run("uvlmm_varcom_eigen", lambda: G.uvlmm_varcom_eigen(
@@ -1345,6 +1364,286 @@ def uvlmm_phase(ctx):
     return times
 
 
+# the longwas family -----------------------------------------------------------
+
+ML = MOUSE / "mouse_long"
+GOLD = ROOT / "tests" / "golden"
+ML_SHAPE = (1212, 11833, 16, 19392)  # ids, SNPs, time points, unbalanced records
+LONG_RTOL = 1e-8  # unbalanced GWAS against direct f64 fits on the card
+LONG_TP = [float(t) for t in range(1, 17)]
+LONG_TRAIT = list(range(2, 18))
+
+
+def var_frame(name):
+    import numpy as np
+    import pandas as pd
+
+    g = np.load(GOLD / name)
+    return pd.DataFrame({k: g[k] for k in ("vari", "varij", "varik",
+                                           "var_val")})
+
+
+def golden_rows(name, key, suffix=""):
+    """A golden table of tests/golden/<name> as a frame."""
+    import numpy as np
+    import pandas as pd
+
+    g = np.load(GOLD / name)
+    return pd.DataFrame(g[key + suffix], columns=list(g[key + "_cols" + suffix]))
+
+
+def whole_table(name, res, m):
+    """m rows, every statistic finite, every p in [0, 1]."""
+    import numpy as np
+
+    check(len(res) == m, f"{name}: {len(res)} rows, want {m}")
+    stats = [c for c in res.columns
+             if c.startswith(("eff", "chi_val", "p_", "cc_"))]
+    vals = res[stats].to_numpy(dtype=float)
+    check(bool(np.isfinite(vals).all()), f"{name}: non-finite statistics")
+    p = res[["p_val", "p_min", "p_accum"]].to_numpy()
+    check(bool(((p >= 0) & (p <= 1)).all()), f"{name}: p outside [0, 1]")
+
+
+def subset_files(wd, prefix, n_sub=150):
+    """The first n_sub .fam ids' GRM rows and unbalanced records (the JAX
+    tests' subset); returns (data file, kinship file)."""
+    import pandas as pd
+
+    fam = pd.read_csv(ML / "plink.fam", sep=r"\s+", header=None, dtype=str)
+    ids = set(fam[1][:n_sub])
+    kin = str(wd / "kin.sub")
+    with open(prefix + ".agrm2") as fin, open(kin, "w") as fout:
+        fout.writelines(ln for ln in fin
+                        if ln.split()[0] in ids and ln.split()[1] in ids)
+    df = pd.read_csv(ML / "phe.unbalance.txt", sep=r"\s+", dtype={"ID": str})
+    data = str(wd / "phe.unbalance.sub.txt")
+    df[df["ID"].isin(ids)].to_csv(data, sep=" ", index=False)
+    return data, kin
+
+
+def unbalance_direct(model, var_df, snp_mat, snps):
+    """eff and chi of the fixed and trans tests at columns `snps` of the
+    (q, m) SNP matrix, one SNP at a time from V built plainly:
+    Z_a (K_a ⊗ G) Z_aᵀ + Z_p (K_p ⊗ I) Z_pᵀ + σ²I with explicit incidence
+    matrices, a GLS on explicit design columns [X, Φ_f ∘ s] for fixed, and
+    the reference's kron(K_a, sᵀ) Z_aᵀ P y and its variance for trans."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda")
+    f64 = {"dtype": torch.float64, "device": dev}
+    rid = torch.as_tensor(model.rec_ids, device=dev)
+    n_rec, q = len(rid), model.kin.shape[0]
+    vals = var_df["var_val"].to_numpy()
+    tril = np.tril_indices(4)
+    covs = []
+    for block in (vals[:10], vals[10:20]):
+        c = np.zeros((4, 4))
+        c[tril] = block
+        covs.append(torch.as_tensor(c + np.tril(c, -1).T, **f64))
+    ka, kp = covs
+
+    def incidence(leg, cols):
+        z = torch.zeros(n_rec, leg.shape[1] * cols, **f64)
+        for j in range(leg.shape[1]):
+            z[torch.arange(n_rec, device=dev), j * cols + rid] = leg[:, j]
+        return z
+
+    z_a = incidence(torch.as_tensor(model.leg_a, **f64), q)
+    z_p = incidence(torch.as_tensor(model.leg_p, **f64), model.q_p)
+    vmat = z_a @ torch.kron(ka, torch.as_tensor(model.kin, **f64)) @ z_a.T
+    vmat += z_p @ torch.kron(kp, torch.eye(model.q_p, **f64)) @ z_p.T
+    vmat += float(vals[-1]) * torch.eye(n_rec, **f64)
+    low = torch.linalg.cholesky(vmat)
+    del vmat
+    x = torch.as_tensor(model.xmat, **f64)
+    y = torch.as_tensor(model.y, **f64)
+    leg_f = torch.as_tensor(model.leg_f, **f64)
+    vx = torch.cholesky_solve(x, low)
+    xvx_inv = torch.linalg.inv(x.T @ vx)
+
+    def pmul(v):  # P v
+        return torch.cholesky_solve(v, low) - vx @ (xvx_inv @ (vx.T @ v))
+
+    py = pmul(y[:, None])[:, 0]
+    out = {"fixed": [], "trans": []}
+    for k in snps:
+        s = torch.as_tensor(snp_mat[:, k], **f64)
+        cols = torch.cat([x, leg_f * s[rid][:, None]], dim=1)
+        vc = torch.cholesky_solve(cols, low)
+        c_inv = torch.linalg.inv(cols.T @ vc)
+        b = c_inv @ (vc.T @ y)
+        eff, var = b[-4:], c_inv[-4:, -4:]
+        out["fixed"].append(torch.cat([eff, (eff @ torch.linalg.solve(
+            var, eff))[None]]))
+        kron_s = torch.kron(ka, s[None, :])  # (cd, cd·q)
+        mt = z_a @ kron_s.T  # (n_rec, cd)
+        eff = mt.T @ py
+        var = mt.T @ pmul(mt)
+        out["trans"].append(torch.cat([eff, (eff @ torch.linalg.solve(
+            var, eff))[None]]))
+    return {k: torch.stack(v).cpu().numpy() for k, v in out.items()}
+
+
+def longwas_phase(ctx):
+    """The longwas family on tests/data/mouse_long at full width (1,212
+    ids, 11,833 SNPs, 16 time points, 19,392 unbalanced records, orders
+    3/3/3), the kinship from the port's agmat: balance_varcom (maxiter=5
+    against the golden, then to convergence); the balanced trans and fixed
+    tests over every SNP at the golden variances, cold and warm (first 30
+    rows against the golden); the full-cohort unbalance_varcom (maxiter=3
+    against the golden) and the unbalanced fixed and trans tests over every
+    SNP at its variances, 16 seeded SNPs against direct f64 fits; the
+    150-id subset's tests and the permutation twins against their goldens,
+    the balance-trans twin byte for byte under one seed, and two
+    full-panel replicates of each trans twin.  Returns (step times,
+    SNPs/s, peak device bytes)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.longwas import balance as lb
+    from gmat_tpu_torch.longwas import balance_gwas as lbg
+    from gmat_tpu_torch.longwas import unbalance as lu
+    from gmat_tpu_torch.longwas import unbalance_gwas as lug
+
+    n_id, m, _, n_rec = ML_SHAPE
+    wd = ctx["workdir"] / "longwas"
+    wd.mkdir()
+    prefix = str(wd / "plink")
+    for ext in (".bed", ".bim", ".fam"):
+        shutil.copy(ML / f"plink{ext}", prefix + ext)
+    torch.cuda.reset_peak_memory_stats()
+    times, rates = {}, {}
+    run = partial(run_step, times)
+    run("agmat(inv=True)", lambda: G.agmat(prefix, inv=True,
+                                           out_fmt="id_id_val"))
+    kin, kin_inv = prefix + ".agrm2", prefix + ".agiv2"
+    bal = (str(ML / "phe.balance.txt"), "ID", LONG_TP, LONG_TRAIT, kin)
+    unb = (str(ML / "phe.unbalance.txt"), "ID", "weak", "trait")
+
+    # balanced REML: five rounds against the golden, then to convergence
+    gold = np.load(GOLD / "longwas_balance_var.npz")
+    var = run("balance_varcom[maxiter=5]", lambda: lb.balance_varcom(
+        *bal, maxiter=5, prefix_outfile=str(wd / "bvar5")),
+        "gmat_tpu_torch.longwas.balance")
+    close("balance_varcom maxiter=5", var["var_val"], gold["var_val"], 1e-6,
+          atol=1e-10)
+    var = run("balance_varcom", lambda: lb.balance_varcom(
+        *bal, prefix_outfile=str(wd / "bvar")), "gmat_tpu_torch.longwas.balance")
+    check(times["balance_varcom"]["status"] == "Variances Converged",
+          f"balance_varcom: {times['balance_varcom']['status']}")
+    times["balance_varcom"]["var"] = var["var_val"].tolist()
+
+    # balanced GWAS over every SNP at the golden variances, cold and warm
+    var_bal = var_frame("longwas_balance_var.npz")
+    for name, kw, tols in (
+            ("balance_longwas_trans", {},
+             ((("eff0", "eff1", "eff2", "eff3", "chi_val"), 1e-5, 1e-10),
+              (("p_val", "p_min", "p_accum"), 1e-4, 1e-12))),
+            ("balance_longwas_fixed", {"snp_batch": 256},
+             ((("eff0", "eff1", "eff2", "eff3", "chi_val"), 1e-6, 1e-10),
+              (("p_val",), 1e-6, 1e-12)))):
+        fn = getattr(lbg, name)
+        for call in ("cold", "warm"):
+            res = run(f"{name}[{call}]", lambda: fn(
+                *bal, prefix, var_bal, prefix_outfile=str(wd / name), **kw))
+        whole_table(name, res, m)
+        want = golden_rows("longwas_balance_gwas.npz", name.split("_")[-1])
+        for cols, rtol, atol in tols:
+            for col in cols:
+                close(f"{name} {col}", res[col][:30], want[col], rtol,
+                      atol=atol)
+        rates[name] = m / times[f"{name}[warm]"]
+
+    # unbalanced REML on the full cohort (9,700 MME unknowns)
+    gold = np.load(GOLD / "longwas_unbalance_var_full.npz")
+    var_full = run("unbalance_varcom[full, maxiter=3]", lambda: lu.unbalance_varcom(
+        *unb, kin_inv, maxiter=int(gold["maxiter"]),
+        prefix_outfile=str(wd / "uvar")), "gmat_tpu_torch.longwas.unbalance")
+    close("unbalance_varcom full cohort", var_full["var_val"],
+          gold["var_val"], 1e-5, atol=1e-8)
+
+    # unbalanced GWAS on the full cohort, 16 SNPs against direct fits
+    tabs = {}
+    for which in ("fixed", "trans"):
+        name = f"unbalance_longwas_{which}"
+        tabs[which] = run(name, lambda: getattr(lug, name)(
+            *unb, prefix, kin, var_full, prefix_outfile=str(wd / name)))
+        whole_table(name, tabs[which], m)
+        rates[name] = m / times[name]
+    model = lu.prepare_unbalance(*unb, kin, kin_is_inverse=False)
+    check(model.q_p == n_id and len(model.y) == n_rec, "mouse_long shape")
+    snp_mat = lug._load_snp_by_code_order(model, prefix, None)[0]
+    snps = np.sort(np.random.default_rng(SEED).choice(m, 16, replace=False))
+    direct = run("direct fits (16 SNPs)", lambda: unbalance_direct(
+        model, var_full, snp_mat, snps))
+    for which, got in direct.items():
+        tab = tabs[which].iloc[snps]
+        for k, col in enumerate(("eff0", "eff1", "eff2", "eff3", "chi_val")):
+            close(f"unbalance {which} vs direct {col}", tab[col], got[:, k],
+                  LONG_RTOL)
+    del model, snp_mat
+
+    # the JAX tests' 150-id subset against the goldens
+    data_sub, kin_sub = subset_files(wd, prefix)
+    sub = (data_sub, "ID", "weak", "trait", prefix, kin_sub,
+           var_frame("longwas_unbalance_var.npz"))
+    cols = ("eff0", "eff1", "eff2", "eff3", "chi_val")
+    for which in ("fixed", "trans"):
+        res = getattr(lug, f"unbalance_longwas_{which}")(
+            *sub, snp_lst=range(30), prefix_outfile=str(wd / f"sub_{which}"))
+        want = golden_rows("longwas_unbalance_gwas.npz", which)
+        for col in cols:
+            close(f"subset {which} {col}", res[col], want[col], 1e-6,
+                  atol=1e-10)
+        for col in ("p_val", "p_min", "p_accum")[:3 if which == "fixed" else 1]:
+            close(f"subset {which} {col}", res[col], want[col], 1e-5,
+                  atol=1e-12)
+
+    # permutation twins: seed 42, replicates 0 and 1, the 30 golden SNPs
+    perm = {"permutation_lst": [0, 1], "snp_lst": range(30), "seed": 42}
+    twins = (
+        ("balance_fixed", lambda out: lbg.balance_longwas_fixed_permutation(
+            *bal, prefix, var_bal, prefix_outfile=out, **perm), 1e-6),
+        ("unbalance_fixed", lambda out: lug.unbalance_longwas_fixed_permutation(
+            *sub, prefix_outfile=out, **perm), 1e-5),
+        ("unbalance_trans", lambda out: lug.unbalance_longwas_trans_permutation(
+            *sub, prefix_outfile=out, **perm), 1e-5))
+    for key, fn, rtol in twins:
+        out = str(wd / key)
+        run(f"{key}_permutation (2 x 30 SNPs)", lambda: fn(out))
+        for rep in (0, 1):
+            got = pd.read_csv(f"{out}.{rep}", sep=r"\s+")
+            want = golden_rows("longwas_permutation.npz", key, f"_{rep}")
+            for col in cols + ("p_val",):
+                close(f"{key} permutation {rep} {col}", got[col], want[col],
+                      rtol, atol=1e-10)
+    for out in ("btp_a", "btp_b"):
+        lbg.balance_longwas_trans_permutation(
+            *bal, prefix, var_bal, prefix_outfile=str(wd / out), **perm)
+    for rep in (0, 1):
+        check((wd / f"btp_a.{rep}").read_bytes()
+              == (wd / f"btp_b.{rep}").read_bytes(),
+              f"balance trans permutation {rep}: files differ under one seed")
+
+    # two full-panel replicates of each trans twin, s per replicate
+    for name, fn, args in (
+            ("balance_longwas_trans_permutation",
+             lbg.balance_longwas_trans_permutation, bal + (prefix, var_bal)),
+            ("unbalance_longwas_trans_permutation",
+             lug.unbalance_longwas_trans_permutation,
+             unb + (prefix, kin, var_full))):
+        out = str(wd / f"{name}_full")
+        run(name, lambda: fn(*args, permutation_lst=[0, 1], seed=42,
+                             prefix_outfile=out))
+        times[name] = {"s_per_replicate": times[name] / 2, "replicates": 2}
+        whole_table(name, pd.read_csv(f"{out}.1", sep=r"\s+"), m)
+    return times, rates, torch.cuda.max_memory_allocated()
+
+
 def main():
     import torch
 
@@ -1425,6 +1724,12 @@ def main():
         uvlmm_times = uvlmm_phase(ctx)
         phase_s["uvlmm"] = time.perf_counter() - t0
         uvlmm_launches = dict(K.LAUNCHES)
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        t0 = time.perf_counter()
+        long_times, long_rates, long_peak = longwas_phase(ctx)
+        phase_s["longwas"] = time.perf_counter() - t0
+        long_launches = dict(K.LAUNCHES)
     times["remma_epiAA_parallel"] = part["wall_s"]
     times.update({k: v["wall_s"] for k, v in family_stages.items()})
     print(f"screen-family launches {json.dumps(family_launches)}", flush=True)
@@ -1433,6 +1738,18 @@ def main():
           "linear algebra on cuBLAS/cuSOLVER: no hand kernel on this path)",
           flush=True)
     print(f"uvlmm step times (s) {json.dumps(uvlmm_times)}", flush=True)
+    check(not any(long_launches.values()),
+          f"the longwas phase launched a hand kernel: {long_launches}")
+    print(f"longwas launches {json.dumps(long_launches)} (dense f64 linear "
+          "algebra on cuBLAS/cuSOLVER: no hand kernel on this path)",
+          flush=True)
+    print(f"longwas step times (s) on {gpu_line}: {json.dumps(long_times)}",
+          flush=True)
+    print(f"longwas rates (SNPs/s) on {gpu_line}: {json.dumps(long_rates)}",
+          flush=True)
+    print(f"longwas peak device memory on {gpu_line}: {long_peak} B "
+          f"({long_peak / 2**30:.2f} GiB, torch.cuda.max_memory_allocated)",
+          flush=True)
     print(f"phase times (s): {json.dumps(phase_s)}", flush=True)
 
     yeast = cases[0]

@@ -19,10 +19,15 @@ fixed-effect tests `uvlmm_gwas_{add,dom}[_eigen]` and `uvlmm_gwas_epiAA`,
 OLS `lm_snp_eff` / `lm_pred`, and prediction `wemai_multi_gmat_pred`;
 beside them `ginbreedcoef`, `impute_geno`, `shuffle_bed`, the
 `design_matrix_wemai_multi_gmat[_pred]` tuples, `gtf_to_gene_info` and
-`annotation_snp_nearest_gene`.
+`annotation_snp_nearest_gene`.  Longitudinal GWAS with random-regression
+models lives in `gmat_tpu_torch.longwas` (`balance_varcom`,
+`balance_longwas_{fixed,trans}[_permutation]`, `unbalance_varcom`,
+`unbalance_longwas_{fixed,trans}[_permutation]`) and, as in `gmat_tpu`,
+is imported from its modules, not from here.
 
-Not ported yet (ROADMAP.md queue 1): longwas (item 15); the periphery, the
-array-level `_remma_*` API and the CLI (16); the `mesh=` argument (17).
+Not ported yet (ROADMAP.md queue 1): the periphery, the array-level
+`_remma_*` API and the CLI (item 3); the `mesh=` argument and `dist/`
+(item 4).
 """
 from gmat_tpu_torch import config  # noqa: F401  -- sets the TF32 policy first
 from gmat_tpu_torch.grm.grm import agmat, dgmat_as, ginbreedcoef  # noqa: F401
