@@ -61,7 +61,20 @@
    and the permutation twins against their goldens, the balance-trans
    twin's files byte for byte under one seed, two full-panel replicates of
    each trans twin timed; no hand kernel may launch (the `longwas step
-   times (s)`, `longwas rates (SNPs/s)` and peak-memory lines).
+   times (s)`, `longwas rates (SNPs/s)` and peak-memory lines);
+13. the periphery (`periphery_phase`) on the yeast set, each call with
+   its own launch counts: `gmat-tpu-torch --device cuda remmax` (its
+   variances and table against the four-step workflow's, the planted
+   pairs, the annotation and the timings file; K1 launched) and
+   `epiaa --parallel 100 1` (byte-equal to remma_epiAA_parallel's file; K2
+   launched); the array-level _wemai_multi_gmat (rtol 1e-8),
+   _remma_epiAA_eff on 64 anchors and _remma_epiAD_parallel([100, 1])
+   (byte-equal to their file-level twins; K1 and K2 in its full
+   rectangle); the legacy keep-all remma_epiAD_eff_cpu on 16 anchors
+   (every pair in both orientations, eff in the f64 bracket, two K1
+   sweeps); simu_epistasis against numpy (rtol 1e-10); the five pedigree
+   tools on a seeded 4,168-id pedigree (the `periphery step times (s)`
+   and `periphery launches` lines).
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit, and the one before that lists each kernel
@@ -1644,6 +1657,377 @@ def longwas_phase(ctx):
     return times, rates, torch.cuda.max_memory_allocated()
 
 
+# the periphery: CLI, remmax, array API, legacy engine, simulators, pedigree -
+
+class MessageLog(logging.Handler):
+    """Keeps the messages of one logger that start with `prefix`."""
+
+    def __init__(self, prefix):
+        super().__init__(logging.INFO)
+        self.prefix, self.messages = prefix, []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if msg.startswith(self.prefix):
+            self.messages.append(msg)
+
+
+def seeded_effects(workdir, m, rng, k=20):
+    """Effect files of `simu_epistasis`: k SNPs (A, D) or pairs (AA, AD,
+    DD) each, drawn without repeats, with normal effects."""
+    import numpy as np
+
+    paths = []
+    for name, n_idx in (("add", 1), ("dom", 1), ("aa", 2), ("ad", 2),
+                        ("dd", 2)):
+        idx = rng.choice(m, size=(k, n_idx), replace=False)
+        np.savetxt(workdir / f"eff_{name}",
+                   np.column_stack([idx, rng.standard_normal(k)]),
+                   fmt=["%d"] * n_idx + ["%.6f"])
+        paths.append(str(workdir / f"eff_{name}"))
+    return paths
+
+
+def simulate_numpy(prefix, paths, ratio, mean, res_var, seed):
+    """`simu_epistasis` recomputed in numpy float64 from the decoded
+    `.bed`: (normalised effect tables, residuals, phenotype)."""
+    import numpy as np
+
+    from gmat_tpu_torch import read_plink
+
+    geno = read_plink(prefix)
+    n = geno.shape[0]
+    freq = geno.sum(axis=0) / (2 * n)
+
+    def code(kind, idx):
+        g, p = geno[:, idx], freq[idx]
+        if kind == "a":
+            return g - 2 * p[None, :]
+        return np.where(g > 1.5, 0.0, g) - (2 * p * (1 - p))[None, :]
+
+    tables, pheno = [], np.full(n, float(mean))
+    targets = (ratio[0], ratio[1], ratio[2], ratio[3], ratio[3])
+    for path, kinds, target in zip(paths, ("a", "d", "aa", "ad", "dd"),
+                                   targets):
+        tab = np.loadtxt(path, ndmin=2)
+        val = tab[:, -1][None, :]
+        for k, kind in enumerate(kinds):
+            val = code(kind, tab[:, k].astype(np.int64)) * val
+        scale = np.sqrt(np.sum(np.var(val, axis=0))
+                        / (target / ratio[-1] * res_var))
+        tab[:, -1] /= scale
+        tables.append(tab)
+        pheno += np.sum(val / scale, axis=1)
+    res = np.random.default_rng(seed).normal(0, np.sqrt(res_var), n)
+    return tables, res, pheno + res
+
+
+def seeded_pedigree(path, n, rng):
+    """n ids in a shuffled file; a parent is an earlier id, sires from the
+    even and dams from the odd ids, a tenth of the ids founders, and one
+    parent in ten unknown.  Returns {id: (sire, dam)}."""
+    ped = {}
+    for k in range(n):
+        s = d = "0"
+        if k >= n // 10:
+            if rng.random() < 0.9:
+                s = f"id{2 * rng.integers(0, k // 2 + k % 2)}"
+            if rng.random() < 0.9 and k > 1:
+                d = f"id{2 * rng.integers(0, k // 2) + 1}"
+        ped[f"id{k}"] = (s, d)
+    keys = list(ped)
+    order = rng.permutation(n)
+    with open(path, "w") as f:
+        for q in order:
+            f.write(f"{keys[q]}\t{ped[keys[q]][0]}\t{ped[keys[q]][1]}\n")
+    return ped
+
+
+def pedigree_checks(workdir, rng):
+    """The five ped_* tools on a seeded pedigree of YEAST[0] ids."""
+    import numpy as np
+
+    from gmat_tpu_torch import (ped_completeness, ped_correct, ped_recode,
+                                ped_sort, ped_trace)
+
+    n = YEAST[0]
+    path = str(workdir / "ped")
+    ped = seeded_pedigree(path, n, rng)
+    ids_file = str(workdir / "ped_ids")
+    sample = [f"id{k}" for k in range(n - 100, n)]
+    with open(ids_file, "w") as f:
+        f.write("".join(f"{i}\n" for i in sample))
+    known, frontier = set(sample), set(sample)
+    while frontier:
+        frontier = {p for i in frontier for p in ped[i] if p != "0"} - known
+        known |= frontier
+    check(ped_trace(ids_file, path) == len(known),
+          f"ped_trace: count differs from the ancestors ({len(known)})")
+    with open(ids_file + ".trace") as f:
+        check({line.split()[0] for line in f} == known,
+              "ped_trace: ids differ from the ancestors")
+    fixed = ped_correct(path)
+    check(all(tuple(fixed[i]) == ped[i] for i in ped) and len(fixed) == n,
+          "ped_correct changed a consistent pedigree")
+    for ext in (".error1", ".error2"):
+        check(open(path + ext).read() == "", f"ped_correct: {ext} not empty")
+    ped_sort(path)
+    seen = {"0"}
+    with open(path + ".sort") as f:
+        for line in f:
+            i, s, d = line.split()
+            check(s in seen and d in seen, f"ped_sort: {i} before a parent")
+            seen.add(i)
+    check(len(seen) == n + 1, "ped_sort: ids missing")
+    ped_recode(path)
+    code = dict(line.split() for line in open(path + ".dct"))
+    check(sorted(map(int, code.values())) == list(range(1, n + 1)),
+          "ped_recode: codes are not 1..n")
+    inv = {int(v): k for k, v in code.items()} | {0: "0"}
+    with open(path) as fa, open(path + ".recode") as fb:
+        for a, b in zip(fa, fb):
+            check(a.split() == [inv[int(c)] for c in b.split()],
+                  "ped_recode: a row does not decode to its input")
+    ped_completeness(path, gen=5, cut=0.5)
+    pec = np.array([float(line.split()[1]) for line in open(path + ".pec")])
+    check(len(pec) > 0 and bool(np.all((pec >= 0.5) & (pec <= 1.0))),
+          "ped_completeness: index outside [cut, 1]")
+    return {"ids": n, "traced": len(known), "pec_rows": len(pec)}
+
+
+def periphery_phase(K, ctx):
+    """What users coming from the reference call, on the yeast set, each
+    call with the launch counts set to 0 just before it and read just
+    after: the command line's remmax (against the four-step workflow) and
+    `epiaa --parallel 100 1` (against remma_epiAA_parallel's file), the
+    array-level _wemai_multi_gmat, _remma_epiAA_eff and
+    _remma_epiAD_parallel (against their file-level twins), the legacy
+    keep-all remma_epiAD_eff_cpu on 16 anchors (against the f64 oracle),
+    simu_epistasis (against numpy) and the pedigree tools.  Returns
+    (step times, launches)."""
+    import numpy as np
+    import pandas as pd
+    import torch
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch import cli
+    from gmat_tpu_torch.io.pheno import design_matrix
+    from gmat_tpu_torch.scan.common import (coded_matrix,
+                                            design_matrix_cached,
+                                            prepare_genotypes_device,
+                                            score_pieces_cached)
+    from gmat_tpu_torch.scan.legacy import remma_epiAD_eff_cpu
+    from gmat_tpu_torch.scan.pairs import balanced_anchor_split
+
+    wd, prefix, pheno = ctx["workdir"], ctx["prefix"], ctx["pheno"]
+    gmat_lst, var_com = ctx["gmat_lst"], ctx["var_com"]
+    n, m = YEAST
+    rng = np.random.default_rng(SEED + 7)
+    times, launches = {}, {}
+
+    def step(name, fn, logger=None):
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        out = run_step(times, name, fn, logger)
+        launches[name] = dict(K.LAUNCHES)
+        return out
+
+    def screened(name, sweeps):
+        check(launches[name]["screen_count"] == sweeps
+              and launches[name]["screen_extract"] == sweeps,
+              f"{name}: launches {launches[name]}, want {sweeps} sweep(s)")
+
+    # the command line configures logging once (`basicConfig`): do it here
+    # so that the INFO lines the phases turned on stay off stderr
+    logging.basicConfig(level=logging.WARNING, format="%(message)s")
+    for handler in logging.getLogger().handlers:
+        handler.setLevel(logging.WARNING)
+
+    # 1. remmax through the command line, against the four-step workflow
+    rx = str(wd / "remmax")
+    check(step("cli_remmax", lambda: cli.main(
+        ["--device", "cuda", "remmax", pheno, prefix, "--out", rx,
+         "--p-cut", "1e-5", "--num-random-pair", "100000",
+         "--no-resume"])) == 0, "cli remmax: nonzero return")
+    check(launches["cli_remmax"]["screen_count"] > 0
+          and launches["cli_remmax"]["screen_extract"] > 0,
+          f"cli remmax: screen launches {launches['cli_remmax']}")
+    rx_var = np.loadtxt(rx + ".var")
+    np.testing.assert_allclose(rx_var, var_com, rtol=1e-6,
+                               err_msg="remmax variances vs the four-step")
+    rows = ctx["approx_rows"]
+    tab = np.loadtxt(rx + ".scan", skiprows=1, ndmin=2)
+    with open(rx + ".scan") as f:
+        check(f.readline().split() == ["snp_0", "snp_1", "eff", "var", "chi",
+                                       "p_app", "p"], "remmax: .scan header")
+    order = np.lexsort((tab[:, 1], tab[:, 0]))
+    want = rows[np.lexsort((rows[:, 1], rows[:, 0]))]
+    check(tab.shape == want.shape and np.array_equal(tab[order, :2],
+                                                     want[:, :2]),
+          f"remmax: {len(tab)} rows, the four-step table {len(want)}: "
+          "not the same pairs")
+    np.testing.assert_allclose(tab[order][:, [2, 3, 4, 6]],
+                               want[:, [2, 3, 4, 6]], rtol=1e-6,
+                               err_msg="remmax eff/var/chi/p vs the four-step")
+    # p_app comes from the float32 screen's eff printed with %g
+    np.testing.assert_allclose(tab[order, 5], want[:, 5], rtol=1e-4,
+                               err_msg="remmax p_app vs the four-step")
+    got = {(int(a), int(b)): max(pa, p) for a, b, *_, pa, p in tab}
+    found = [pp for pp in ctx["planted"] if got.get(pp, 1.0) < 1e-5]
+    check(len(found) >= 4, f"remmax: planted pairs found {found}")
+    check((wd / "remmax.scan.anno").exists(), "remmax: no .scan.anno")
+    with open(rx + ".timings.json") as f:
+        rx_times = json.load(f)
+    check(set(rx_times) == {"grm", "reml", "scan", "annotate"},
+          f"remmax timings keys {sorted(rx_times)}")
+    times["cli_remmax_stages"] = rx_times
+
+    # 2. the command line's exact part, against remma_epiAA_parallel's file
+    ex = str(wd / "cli_epiAA_parallel")
+    check(step("cli_epiaa_parallel", lambda: cli.main(
+        ["--device", "cuda", "epiaa", pheno, prefix, "--grm", "ag",
+         "--grm", "ag*ag", "--var", str(wd / "var.txt"), "--p-cut", "1e-5",
+         "--parallel", "100", "1", "--out", ex])) == 0,
+          "cli epiaa: nonzero return")
+    check(launches["cli_epiaa_parallel"]["exact_scan"] > 0,
+          "cli epiaa --parallel never launched the exact-scan kernel")
+    check((wd / "cli_epiAA_parallel.1").read_bytes()
+          == (wd / "epiAA_parallel.1").read_bytes(),
+          "cli epiaa --parallel 100 1: file differs from "
+          "remma_epiAA_parallel([100, 1])'s")
+
+    # 3. the array-level REML against the file-level one
+    dm = design_matrix(pheno, prefix)
+    arrays = (dm.y, dm.xmat, dm.z_dense())
+    var_arr = step("array_wemai", lambda: G._wemai_multi_gmat(
+        *arrays, gmat_lst), "gmat_tpu_torch.reml.wemai")
+    np.testing.assert_allclose(var_arr, var_com, rtol=1e-8,
+                               err_msg="_wemai_multi_gmat vs wemai_multi_gmat")
+    args = arrays + (gmat_lst, var_com, prefix)
+
+    # 4. the array-level AA screen against the file-level one, 64 anchors
+    anchors = sorted(rng.choice(m - 1, size=64, replace=False).tolist())
+    var_app = float(np.median(rows[:, 3]))
+    arr_eff, file_eff = str(wd / "arr_epiAA_eff"), str(wd / "epiAA_eff64")
+    step("array_epiAA_eff", lambda: G._remma_epiAA_eff(
+        *args, snp_lst_0=anchors, var_app=var_app, p_cut=1e-3,
+        out_file=arr_eff))
+    step("file_epiAA_eff", lambda: G.remma_epiAA_eff(
+        pheno, prefix, gmat_lst, var_com, snp_lst_0=anchors,
+        var_app=var_app, p_cut=1e-3, out_file=file_eff))
+    for name in ("array_epiAA_eff", "file_epiAA_eff"):
+        screened(name, 1)
+    eff_bytes = open(arr_eff, "rb").read()
+    check(eff_bytes == open(file_eff, "rb").read(),
+          "_remma_epiAA_eff: file differs from remma_epiAA_eff's")
+    eff_rows = eff_bytes.count(b"\n") - 1
+    check(eff_rows > 0, "_remma_epiAA_eff: no rows")
+
+    # 5. the array-level AD part against the file-level one (rect K2)
+    scan_log = MessageLog("Exact scan:")
+    pairs_logger = logging.getLogger("gmat_tpu_torch.scan.pairs")
+    level = pairs_logger.level
+    pairs_logger.addHandler(scan_log)
+    pairs_logger.setLevel(logging.INFO)
+    try:
+        arr_ad, file_ad = str(wd / "arr_epiAD"), str(wd / "file_epiAD")
+        step("array_epiAD_parallel", lambda: G._remma_epiAD_parallel(
+            *args, parallel=[100, 1], p_cut=1e-5, out_file=arr_ad))
+        step("file_epiAD_parallel", lambda: G.remma_epiAD_parallel(
+            pheno, prefix, gmat_lst, var_com, parallel=[100, 1], p_cut=1e-5,
+            out_file=file_ad))
+    finally:
+        pairs_logger.removeHandler(scan_log)
+        pairs_logger.setLevel(level)
+    ad_anchors = balanced_anchor_split(m, 100, 1, triangular=False)
+    for name in ("array_epiAD_parallel", "file_epiAD_parallel"):
+        check(launches[name]["exact_scan"] > 0,
+              f"{name} never launched the exact-scan kernel")
+    rect = f"Exact scan: {len(ad_anchors)} anchors, {len(ad_anchors) * m} tests"
+    check(len(scan_log.messages) == 2
+          and all(s.startswith(rect) for s in scan_log.messages),
+          f"_remma_epiAD_parallel: not the full rectangle: "
+          f"{scan_log.messages}")
+    ad_bytes = open(arr_ad + ".1", "rb").read()
+    check(ad_bytes == open(file_ad + ".1", "rb").read(),
+          "_remma_epiAD_parallel: file differs from remma_epiAD_parallel's")
+
+    # 6. the legacy keep-all AD screen on 16 anchors against the f64 oracle
+    keep = str(wd / "epiAD_eff_cpu")
+    anchors16 = sorted(rng.choice(m - 1, size=16, replace=False).tolist())
+    step("legacy_epiAD_eff_cpu_keep_all", lambda: remma_epiAD_eff_cpu(
+        *args, snp_lst_0=anchors16, out_file=keep))
+    screened("legacy_epiAD_eff_cpu_keep_all", 2)
+    ka = pd.read_csv(keep, sep=" ")
+    check(list(ka.columns) == ["snp_0", "snp_1", "eff"],
+          f"remma_epiAD_eff_cpu: columns {list(ka.columns)}")
+    dmc = design_matrix_cached(pheno, prefix)
+    py = score_pieces_cached(dmc, gmat_lst, var_com).pymat
+    g, _ = prepare_genotypes_device(prefix)
+    a64, d64 = coded_matrix(g, "add"), coded_matrix(g, "dom")
+    idx = torch.as_tensor(anchors16, device=g.device)
+    # row (r0, r1) is A_r0·py·D_r1 in both sweeps: anchors on either side
+    s_fwd = (a64[:, idx] * py[:, None]).T @ d64  # (16, m): rows (i, j)
+    s_rev = (d64[:, idx] * py[:, None]).T @ a64  # rows (j, i)
+    f_fwd = (a64[:, idx].abs() * py.abs()[:, None]).T @ d64.abs()
+    f_rev = (d64[:, idx].abs() * py.abs()[:, None]).T @ a64.abs()
+    r0, r1 = ka["snp_0"].to_numpy(), ka["snp_1"].to_numpy()
+    fwd = np.isin(r0, anchors16) & (r1 > r0)
+    rev = np.isin(r1, anchors16) & (r0 > r1)
+    check(bool(np.all(fwd | rev)), "remma_epiAD_eff_cpu: a row of no anchor")
+    pos = {a: k for k, a in enumerate(anchors16)}
+    e64 = np.empty(len(ka))
+    floor = np.empty(len(ka))
+    for sel, s, f, anc, part in ((fwd, s_fwd, f_fwd, r0, r1),
+                                 (rev, s_rev, f_rev, r1, r0)):
+        k = np.array([pos[a] for a in anc[sel]], dtype=np.int64)
+        e64[sel] = s.cpu().numpy()[k, part[sel]]
+        floor[sel] = n * 2.0 ** -24 * f.cpu().numpy()[k, part[sel]]
+    eff = ka["eff"].to_numpy()
+    check(bool(np.all(np.abs(eff - e64) <= EFF_RTOL * np.abs(e64) + floor)),
+          "remma_epiAD_eff_cpu: eff outside the f64 bracket")
+    expect = {(a, j) for a in anchors16 for j in range(a + 1, m)}
+    expect |= {(j, a) for a, j in expect}
+    keys = list(zip(r0.tolist(), r1.tolist()))
+    check(len(keys) == len(expect) and set(keys) == expect,
+          f"remma_epiAD_eff_cpu: {len(keys)} rows, not the {len(expect)} "
+          "pairs of its anchors in both orientations")
+    keep_all = {"rows": len(ka), "anchors": len(anchors16)}
+
+    # 7. simu_epistasis against a numpy float64 recomputation
+    ratio, mean, res_var = [2.0, 1.0, 0.5, 0.5, 0.5, 1.0], 1.0, 1.0
+    paths = seeded_effects(wd, m, rng)
+    sim = str(wd / "sim")
+    step("simu_epistasis", lambda: G.simu_epistasis(
+        prefix, *paths, out_file=sim, seed=SEED))
+    tables, res_vec, ph = simulate_numpy(prefix, paths, ratio, mean, res_var,
+                                         SEED)
+    for path, tab in zip(paths, tables):
+        got_tab = np.loadtxt(path + ".norm", ndmin=2)
+        check(np.array_equal(got_tab[:, :-1], tab[:, :-1]),
+              f"simu_epistasis: {path}.norm indexes")
+        np.testing.assert_allclose(got_tab[:, -1], tab[:, -1], rtol=1e-10,
+                                   err_msg=f"simu_epistasis {path}.norm")
+    np.testing.assert_array_equal(np.loadtxt(sim + ".res"), res_vec)
+    got_ph = pd.read_csv(sim + ".pheno", sep=" ", header=None)
+    check(got_ph.shape == (n, 4) and bool(np.all(got_ph[2] == 1)),
+          "simu_epistasis: .pheno shape")
+    np.testing.assert_allclose(got_ph[3].to_numpy(), ph, rtol=1e-10,
+                               err_msg="simu_epistasis phenotype vs numpy")
+
+    # 8. the pedigree tools
+    ped = step("pedigree", lambda: pedigree_checks(wd, rng))
+    for name in ("array_wemai", "simu_epistasis", "pedigree"):
+        check(not any(launches[name].values()),
+              f"{name} launched a hand kernel: {launches[name]}")
+    print(f"periphery: remmax {len(tab)} rows, _remma_epiAA_eff {eff_rows} "
+          f"rows over 64 anchors, _remma_epiAD_parallel "
+          f"{ad_bytes.count(bytes([10])) - 1} rows over "
+          f"{len(ad_anchors)} anchors, keep-all {json.dumps(keep_all)}, "
+          f"pedigree {json.dumps(ped)}", flush=True)
+    return times, launches
+
+
 def main():
     import torch
 
@@ -1730,6 +2114,9 @@ def main():
         long_times, long_rates, long_peak = longwas_phase(ctx)
         phase_s["longwas"] = time.perf_counter() - t0
         long_launches = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        peri_times, peri_launches = periphery_phase(K, ctx)
+        phase_s["periphery"] = time.perf_counter() - t0
     times["remma_epiAA_parallel"] = part["wall_s"]
     times.update({k: v["wall_s"] for k, v in family_stages.items()})
     print(f"screen-family launches {json.dumps(family_launches)}", flush=True)
@@ -1750,6 +2137,9 @@ def main():
     print(f"longwas peak device memory on {gpu_line}: {long_peak} B "
           f"({long_peak / 2**30:.2f} GiB, torch.cuda.max_memory_allocated)",
           flush=True)
+    print(f"periphery launches {json.dumps(peri_launches)}", flush=True)
+    print(f"periphery step times (s) on {gpu_line}: "
+          f"{json.dumps(peri_times)}", flush=True)
     print(f"phase times (s): {json.dumps(phase_s)}", flush=True)
 
     yeast = cases[0]

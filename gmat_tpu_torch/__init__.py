@@ -23,11 +23,15 @@ beside them `ginbreedcoef`, `impute_geno`, `shuffle_bed`, the
 models lives in `gmat_tpu_torch.longwas` (`balance_varcom`,
 `balance_longwas_{fixed,trans}[_permutation]`, `unbalance_varcom`,
 `unbalance_longwas_{fixed,trans}[_permutation]`) and, as in `gmat_tpu`,
-is imported from its modules, not from here.
+is imported from its modules, not from here.  The periphery: the
+array-level `_remma_*` / `_wemai_multi_gmat` twins that take
+(y, xmat, zmat) (`scan/array_api.py`, on the legacy `remma_*_cpu` engine
+of `scan/legacy.py`), the simulators `simu_epistasis[_freq]`, the pedigree
+tools `ped_*`, the one-call `pipeline.remmax.remmax` and the
+`gmat-tpu-torch` command line (`cli.py`).
 
-Not ported yet (ROADMAP.md queue 1): the periphery, the array-level
-`_remma_*` API and the CLI (item 3); the `mesh=` argument and `dist/`
-(item 4).
+Not ported yet (ROADMAP.md queue 1): the `mesh=` argument, `dist/` and the
+command line's `--devices`.
 """
 from gmat_tpu_torch import config  # noqa: F401  -- sets the TF32 policy first
 from gmat_tpu_torch.grm.grm import agmat, dgmat_as, ginbreedcoef  # noqa: F401
@@ -108,5 +112,39 @@ from gmat_tpu_torch.scan.screen import (  # noqa: F401
     remma_epiDD_maf_eff_parallel,
 )
 from gmat_tpu_torch.scan.single import remma_add, remma_dom  # noqa: F401
+from gmat_tpu_torch.scan.array_api import (  # noqa: F401
+    _remma_add,
+    _remma_dom,
+    _remma_epiAA,
+    _remma_epiAA_eff,
+    _remma_epiAA_eff_parallel,
+    _remma_epiAA_maf_eff,
+    _remma_epiAA_pair,
+    _remma_epiAA_parallel,
+    _remma_epiAD,
+    _remma_epiAD_eff,
+    _remma_epiAD_eff_parallel,
+    _remma_epiAD_maf_eff,
+    _remma_epiAD_pair,
+    _remma_epiAD_parallel,
+    _remma_epiDD,
+    _remma_epiDD_eff,
+    _remma_epiDD_eff_parallel,
+    _remma_epiDD_maf_eff,
+    _remma_epiDD_pair,
+    _remma_epiDD_parallel,
+    _wemai_multi_gmat,
+)
+from gmat_tpu_torch.pipeline.simulate import (  # noqa: F401
+    simu_epistasis,
+    simu_epistasis_freq,
+)
+from gmat_tpu_torch.pedigree.pedigree import (  # noqa: F401
+    ped_completeness,
+    ped_correct,
+    ped_recode,
+    ped_sort,
+    ped_trace,
+)
 
 __version__ = "0.1.0"

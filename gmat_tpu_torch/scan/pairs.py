@@ -45,22 +45,28 @@ _CODING_KINDS = {"AA": ("add", "add"), "AD": ("add", "dom"),
                  "DD": ("dom", "dom")}
 
 
+def _coded_panels(bed_prefix, kind, device=None):
+    """The cached device panel of `bed_prefix` coded for `kind`:
+    (mat0, mat1, num_snp, triangular)."""
+    from gmat_tpu_torch.scan.common import (coded_matrix,
+                                            prepare_genotypes_device)
+
+    k0, k1 = _CODING_KINDS[kind]
+    g, num_snp = prepare_genotypes_device(bed_prefix, device=device)
+    return coded_matrix(g, k0), coded_matrix(g, k1), num_snp, _CODINGS[kind][2]
+
+
 def _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, device=None):
     """Pipeline-stage setup through the identity caches: the design parse,
     the O(n³) score pieces and the (n, m) coded panels are computed once
     and shared by the calibrate, screen and re-test stages."""
-    from gmat_tpu_torch.scan.common import (coded_matrix, design_matrix_cached,
-                                            prepare_genotypes_device,
+    from gmat_tpu_torch.scan.common import (design_matrix_cached,
                                             score_pieces_cached)
 
     dev = resolve_device(device)
-    k0, k1 = _CODING_KINDS[kind]
-    triangular = _CODINGS[kind][2]
     dm = design_matrix_cached(pheno_file, bed_prefix)
     pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
-    g, num_snp = prepare_genotypes_device(bed_prefix, device=dev)
-    mat0 = coded_matrix(g, k0)
-    mat1 = coded_matrix(g, k1)
+    mat0, mat1, num_snp, triangular = _coded_panels(bed_prefix, kind, dev)
     return mat0, mat1, pieces, num_snp, triangular
 
 
@@ -78,6 +84,14 @@ def _remma_epi_pair(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     """Exact test for an explicit pair list, chunked max_test_pair at a time."""
     mat0, mat1, pieces, num_snp, _ = _epi_setup(
         pheno_file, bed_prefix, gmat_lst, var_com, kind, device)
+    return _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file,
+                      max_test_pair, p_cut, out_file)
+
+
+def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
+               p_cut, out_file):
+    """The pairs of `snp_pair_file` (header line, then `snp_0 snp_1 ...`)
+    through `_pair_kernel`, rows with p < p_cut written to `out_file`."""
     try:
         pairs = pd.read_csv(snp_pair_file, sep=r"\s+", usecols=[0, 1],
                             skiprows=1, header=None).to_numpy(dtype=np.int64)

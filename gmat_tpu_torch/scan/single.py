@@ -29,10 +29,11 @@ def _single_scan(mat, pymat, pvpmat, sigma2, scale):
     return eff, var, eff_fixed, chi, chi2_sf(chi, 1)
 
 
-def _run_single(pheno_file, bed_prefix, gmat_lst, var_com, coding, sigma2,
+def _run_single(dm, bed_prefix, gmat_lst, var_com, coding, sigma2,
                 out_file, device=None):
+    """The single-SNP test of every SNP of `bed_prefix` under the design
+    `dm`; writes `out_file` (unless it is empty) and returns the table."""
     dev = resolve_device(device)
-    dm = design_matrix(pheno_file, bed_prefix)
     pieces = score_pieces(dm, gmat_lst, var_com, dev)
     geno, bim, _ = prepare_genotypes(bed_prefix)
     mat, _, scale = coding(torch.as_tensor(geno, dtype=EXACT_DTYPE,
@@ -54,12 +55,14 @@ def _run_single(pheno_file, bed_prefix, gmat_lst, var_com, coding, sigma2,
 def remma_add(pheno_file: str, bed_prefix: str, gmat_lst, var_com,
               out_file: str = "remma_add", device=None) -> pd.DataFrame:
     """Additive single-SNP test; var_com[0] must be the additive variance."""
-    return _run_single(pheno_file, bed_prefix, gmat_lst, var_com,
-                       additive_code, var_com[0], out_file, device)
+    return _run_single(design_matrix(pheno_file, bed_prefix), bed_prefix,
+                       gmat_lst, var_com, additive_code, var_com[0], out_file,
+                       device)
 
 
 def remma_dom(pheno_file: str, bed_prefix: str, gmat_lst, var_com,
               out_file: str = "remma_dom", device=None) -> pd.DataFrame:
     """Dominance single-SNP test; var_com[1] must be the dominance variance."""
-    return _run_single(pheno_file, bed_prefix, gmat_lst, var_com,
-                       dominance_code, var_com[1], out_file, device)
+    return _run_single(design_matrix(pheno_file, bed_prefix), bed_prefix,
+                       gmat_lst, var_com, dominance_code, var_com[1], out_file,
+                       device)
