@@ -74,7 +74,17 @@
    (every pair in both orientations, eff in the f64 bracket, two K1
    sweeps); simu_epistasis against numpy (rtol 1e-10); the five pedigree
    tools on a seeded 4,168-id pedigree (the `periphery step times (s)`
-   and `periphery launches` lines).
+   and `periphery launches` lines);
+14. the device mesh (`mesh_phase`) on the yeast set: (a) two virtual
+   shards of the card, `make_mesh(devices=["cuda:0", "cuda:0"])`, and (b)
+   every visible card, `make_mesh()`, each through agmat (rtol 1e-10),
+   remma_epiAA_approx (the four-step table's bytes), remma_epiAD_maf_eff,
+   remma_epiAA over the [100, 1] part's anchors in two runs (the part's
+   file's bytes) and remma_epiAA_pair (the calibration file's bytes), the
+   K1/K2 launches one per shard with work; (c) a 2-process world on the
+   card, this script run twice as `--mesh-worker` and joined by
+   `initialize_multihost(..., backend="gloo")`: the sharded GRM and
+   remma_epiAA_eff(mesh=) against single runs (the `mesh` line).
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit, and the one before that lists each kernel
@@ -2028,6 +2038,298 @@ def periphery_phase(K, ctx):
     return times, launches
 
 
+MESH_WORKERS = 2  # processes of the gloo world in mesh_phase (c)
+
+
+def mesh_calls(K, ctx, mesh, single):
+    """The mesh's calls on the yeast set, each with the launch counts set
+    to 0 just before it and read just after: agmat (rtol 1e-10 against the
+    four-step GRM), remma_epiAA_approx (the four-step table's bytes),
+    remma_epiAD_maf_eff, remma_epiAA over the [100, 1] part's anchors in
+    runs of at most 2^21 pairs (the part's file's bytes) and
+    remma_epiAA_pair over the 100,000 calibration pairs (their file's
+    bytes), each against the call without a mesh (`single`).  K1 and K2
+    must launch the no-mesh count per shard (K2 once per run: two runs, on
+    two shards or in two rounds of one).  Returns
+    {call: {"s", "launches"}}."""
+    import numpy as np
+    import torch
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.scan import pairs as pairs_mod
+
+    wd, shards = ctx["workdir"], mesh.size
+    args = (ctx["pheno"], ctx["prefix"], ctx["gmat_lst"], ctx["var_com"])
+    tag = f"mesh{shards}"
+    out = {}
+
+    def step(name, fn):
+        for key in K.LAUNCHES:
+            K.LAUNCHES[key] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0,
+                     "launches": dict(K.LAUNCHES)}
+        return res
+
+    def same_bytes(name, path, want):
+        got = Path(path).read_bytes()
+        check(got.count(b"\n") > 1 and got == Path(want).read_bytes(),
+              f"{tag} {name}: {path} differs from {want}")
+
+    kin, _ = step("agmat", lambda: G.agmat(ctx["prefix"], mesh=mesh))
+    np.testing.assert_allclose(kin, ctx["gmat_lst"][0], rtol=1e-10,
+                               atol=1e-12, err_msg=f"{tag} agmat")
+    approx = str(wd / f"epiAA.{tag}")
+    step("remma_epiAA_approx", lambda: G.remma_epiAA_approx(
+        *args, p_cut=1e-5, num_random_pair=100000, out_file=approx,
+        mesh=mesh))
+    same_bytes("remma_epiAA_approx", approx, wd / "epiAA")
+    ad = str(wd / f"epiAD_maf_eff.{tag}")
+    step("remma_epiAD_maf_eff", lambda: G.remma_epiAD_maf_eff(
+        *args, out_file=ad, mesh=mesh, **single["ad_kw"]))
+    same_bytes("remma_epiAD_maf_eff", ad, single["ad_file"])
+    scan = str(wd / f"epiAA_part.{tag}")
+    budget = pairs_mod._SCAN_PAIR_BUDGET
+    pairs_mod._SCAN_PAIR_BUDGET = 1 << 21  # 2 runs: one per shard
+    try:
+        step("remma_epiAA", lambda: G.remma_epiAA(
+            *args, snp_lst_0=single["part_anchors"], p_cut=1e-5,
+            out_file=scan, mesh=mesh))
+    finally:
+        pairs_mod._SCAN_PAIR_BUDGET = budget
+    same_bytes("remma_epiAA", scan, wd / "epiAA_parallel.1")
+    pair = str(wd / f"rp.res.{tag}")
+    step("remma_epiAA_pair", lambda: G.remma_epiAA_pair(
+        *args, str(wd / "rp"), p_cut=1.1, out_file=pair, mesh=mesh))
+    same_bytes("remma_epiAA_pair", pair, wd / "rp.res")
+    # K1: one count and one extract per sweep and shard; K2: one per run
+    want = {"agmat": (0, 0), "remma_epiAA_approx": (shards, 0),
+            "remma_epiAD_maf_eff": (2 * shards, 0), "remma_epiAA": (0, 2),
+            "remma_epiAA_pair": (0, 0)}
+    for name, (k1, k2) in want.items():
+        got = out[name]["launches"]
+        check(got == {"screen_count": k1, "screen_extract": k1,
+                      "exact_scan": k2},
+              f"{tag} {name}: launches {got}, want K1 {k1}, K2 {k2}")
+    return out
+
+
+def mesh_worker(argv):
+    """One process of mesh_phase's gloo world on the one card (this script
+    run as `chip_smoke.py --mesh-worker RANK WORLD PORT WORKDIR VAR_APP`):
+    the sharded GRM (rank 0 saves it) and remma_epiAA_eff(mesh=) into
+    WORKDIR/proc<RANK>/, with its launches and times in result.json."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from gmat_tpu_torch.dist import initialize_multihost, sharded_additive_grm
+    from gmat_tpu_torch.scan import kernels as K
+    from gmat_tpu_torch.scan.common import prepare_genotypes
+    from gmat_tpu_torch.scan.screen import remma_epiAA_eff
+
+    rank, world, port = (int(a) for a in argv[:3])
+    wd, var_app = Path(argv[3]), float(argv[4])
+    mesh = initialize_multihost(f"localhost:{port}", world, rank,
+                                local_device_ids=["cuda:0"], backend="gloo")
+    check(mesh.size == world and mesh.rank == rank, f"worker mesh {mesh}")
+    out = wd / f"proc{rank}"
+    out.mkdir()
+    geno, _, _ = prepare_genotypes(str(wd / "plink"))
+    ag = np.load(wd / "ag.npy")
+    times = {}
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    kin = sharded_additive_grm(geno, mesh)
+    torch.cuda.synchronize()
+    times["sharded_additive_grm"] = time.perf_counter() - t0
+    if rank == 0:
+        np.save(out / "kin.npy", kin.cpu().numpy())
+    t0 = time.perf_counter()
+    remma_epiAA_eff(str(wd / "pheno"), str(wd / "plink"), [ag, ag * ag],
+                    np.loadtxt(wd / "var.txt"), var_app=var_app, p_cut=1e-5,
+                    out_file=str(out / "epiAA_eff"), mesh=mesh)
+    torch.cuda.synchronize()
+    times["remma_epiAA_eff"] = time.perf_counter() - t0
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    (out / "result.json").write_text(json.dumps(
+        {"launches": dict(K.LAUNCHES), "s": times}))
+
+
+def gloo_world(K, ctx):
+    """mesh_phase (c): MESH_WORKERS processes of this script, one shard
+    each on the card, joined by gloo; the sharded GRM against the
+    four-step GRM (rtol 1e-10) and remma_epiAA_eff(mesh=)'s file against a
+    single run's bytes, one K1 sweep per process."""
+    import socket
+
+    import numpy as np
+    import torch
+
+    import gmat_tpu_torch as G
+
+    wd = ctx["workdir"]
+    np.save(wd / "ag.npy", ctx["gmat_lst"][0])
+    var_app = float(np.median(ctx["approx_rows"][:, 3]))
+    single = str(wd / "epiAA_eff.single")
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    G.remma_epiAA_eff(ctx["pheno"], ctx["prefix"], ctx["gmat_lst"],
+                      ctx["var_com"], var_app=var_app, p_cut=1e-5,
+                      out_file=single)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    check(K.LAUNCHES["screen_count"] == 1, f"single eff {K.LAUNCHES}")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--mesh-worker",
+         str(rank), str(MESH_WORKERS), str(port), str(wd), repr(var_app)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(MESH_WORKERS)]
+    deadline = time.monotonic() + 240
+    try:
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"gloo worker {rank} failed:\n{log}")
+    kin = np.load(wd / "proc0" / "kin.npy")
+    np.testing.assert_allclose(kin, ctx["gmat_lst"][0], rtol=1e-10,
+                               atol=1e-12, err_msg="gloo sharded GRM")
+    want = Path(single).read_bytes()
+    check(want.count(b"\n") > 1, "single remma_epiAA_eff: no rows")
+    res = []
+    for rank in range(MESH_WORKERS):
+        proc = wd / f"proc{rank}"
+        check((proc / "epiAA_eff").read_bytes() == want,
+              f"gloo remma_epiAA_eff (process {rank}) differs from a single "
+              "run's file")
+        res.append(json.loads((proc / "result.json").read_text()))
+        check(res[-1]["launches"] == {"screen_count": 1, "screen_extract": 1,
+                                      "exact_scan": 0},
+              f"gloo process {rank}: launches {res[-1]['launches']}")
+    return {"processes": MESH_WORKERS, "wall_s": wall,
+            "remma_epiAA_eff_single_s": single_s,
+            "rows": want.count(b"\n") - 1, "per_process": res}
+
+
+def shard_kernel_ms(K, ctx):
+    """K1 on the yeast set's AA screen, by CUDA events (median of 3): one
+    device's identity sweep against the two halves of a 2-shard mesh, the
+    anchors 0::2 and 1::2 gathered into panels (the general path)."""
+    import numpy as np
+    import torch
+    from scipy.stats import chi2
+
+    from gmat_tpu_torch.scan.common import (coded_matrix,
+                                            design_matrix_cached,
+                                            prepare_genotypes_device,
+                                            score_pieces_cached)
+
+    m = YEAST[1]
+    g, _ = prepare_genotypes_device(ctx["prefix"])
+    a = coded_matrix(g, "add", torch.float32)
+    dm = design_matrix_cached(ctx["pheno"], ctx["prefix"])
+    py = score_pieces_cached(dm, ctx["gmat_lst"], ctx["var_com"]).pymat.to(
+        torch.float32).contiguous()
+    cut = float(np.sqrt(chi2.isf(1e-5, 1)
+                        * np.median(ctx["approx_rows"][:, 3])))
+    anchors = torch.arange(m - 1)
+    out = {}
+    for name, anc in (("one_device", None), ("shard0", anchors[0::2]),
+                      ("shard1", anchors[1::2])):
+        panel, ids = K.anchor_panel(a, anc, m)
+        b = None if ids is None else a
+        count_ms, extract_ms = [], []
+        for _ in range(3):
+            counts, ms = timed(lambda: K.screen_counts(panel, py, cut, m, b=b,
+                                                       ids=ids))
+            count_ms.append(ms)
+            _, ms = timed(lambda: K.screen_extract(panel, py, cut, m, counts,
+                                                   b=b, ids=ids))
+            extract_ms.append(ms)
+        out[name] = {"anchors": m - 1 if ids is None else len(ids),
+                     "tiles": int(torch.count_nonzero(counts)),
+                     "hits": int(counts.sum()),
+                     "count_ms": float(np.median(count_ms)),
+                     "extract_ms": float(np.median(extract_ms))}
+    check(out["shard0"]["hits"] + out["shard1"]["hits"]
+          == out["one_device"]["hits"], f"K1 halves vs one device: {out}")
+    return out
+
+
+def mesh_phase(K, ctx):
+    """The device mesh on the yeast set: (a) two virtual shards of the
+    card, (b) every visible card (`make_mesh()`), each through
+    `mesh_calls` against the calls without a mesh, K1's halves beside one
+    device's sweep (`shard_kernel_ms`); (c) `gloo_world`.  Returns the
+    `mesh` line's record."""
+    import numpy as np
+    import torch
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.dist import make_mesh
+    from gmat_tpu_torch.scan.common import prepare_genotypes
+    from gmat_tpu_torch.scan.pairs import balanced_anchor_split
+    from gmat_tpu_torch.scan.screen import _het_bins, _maf_bins
+
+    wd, m = ctx["workdir"], YEAST[1]
+    args = (ctx["pheno"], ctx["prefix"], ctx["gmat_lst"], ctx["var_com"])
+    geno, _, _ = prepare_genotypes(ctx["prefix"])
+    deno = np.ones(111)
+    for k1, k2, v in np.loadtxt(wd / "remma_epiAD_maf_approx"
+                                ".freq_denominator", ndmin=2):
+        deno[int(k1) * 10 + int(k2)] = v
+    single = {"ad_kw": {"freqA": _maf_bins(geno)[1],
+                        "freqD": _het_bins(geno)[1], "freq_deno": deno,
+                        "p_cut": 1e-5},
+              "ad_file": str(wd / "epiAD_maf_eff.single"),
+              "part_anchors": balanced_anchor_split(m, 100, 1)}
+    # the calls without a mesh that the four-step and the exhaustive part
+    # did not already make
+    no_mesh = {}
+    for name, fn in (
+            ("remma_epiAD_maf_eff", lambda: G.remma_epiAD_maf_eff(
+                *args, out_file=single["ad_file"], **single["ad_kw"])),
+            ("remma_epiAA_approx", lambda: G.remma_epiAA_approx(
+                *args, p_cut=1e-5, num_random_pair=100000,
+                out_file=str(wd / "epiAA.again")))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        no_mesh[name] = time.perf_counter() - t0
+    check((wd / "epiAA.again").read_bytes() == (wd / "epiAA").read_bytes(),
+          "remma_epiAA_approx: a second run differs from the four-step's")
+    record = {"no_mesh_s": no_mesh}
+    for tag, mesh in (("two_virtual_shards",
+                       make_mesh(devices=["cuda:0", "cuda:0"])),
+                      ("all_devices", make_mesh())):
+        t0 = time.perf_counter()
+        record[tag] = {"shards": mesh.size,
+                       "calls": mesh_calls(K, ctx, mesh, single)}
+        record[tag]["wall_s"] = time.perf_counter() - t0
+    record["k1_ms"] = shard_kernel_ms(K, ctx)
+    t0 = time.perf_counter()
+    record["gloo_world"] = gloo_world(K, ctx)
+    record["gloo_world"]["phase_s"] = time.perf_counter() - t0
+    return record
+
+
 def main():
     import torch
 
@@ -2117,6 +2419,9 @@ def main():
         t0 = time.perf_counter()
         peri_times, peri_launches = periphery_phase(K, ctx)
         phase_s["periphery"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_record = mesh_phase(K, ctx)
+        phase_s["mesh"] = time.perf_counter() - t0
     times["remma_epiAA_parallel"] = part["wall_s"]
     times.update({k: v["wall_s"] for k, v in family_stages.items()})
     print(f"screen-family launches {json.dumps(family_launches)}", flush=True)
@@ -2140,6 +2445,7 @@ def main():
     print(f"periphery launches {json.dumps(peri_launches)}", flush=True)
     print(f"periphery step times (s) on {gpu_line}: "
           f"{json.dumps(peri_times)}", flush=True)
+    print(f"mesh on {gpu_line}: {json.dumps(mesh_record)}", flush=True)
     print(f"phase times (s): {json.dumps(phase_s)}", flush=True)
 
     yeast = cases[0]
@@ -2176,4 +2482,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        mesh_worker(sys.argv[2:])
+    else:
+        main()

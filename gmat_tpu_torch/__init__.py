@@ -28,10 +28,12 @@ array-level `_remma_*` / `_wemai_multi_gmat` twins that take
 (y, xmat, zmat) (`scan/array_api.py`, on the legacy `remma_*_cpu` engine
 of `scan/legacy.py`), the simulators `simu_epistasis[_freq]`, the pedigree
 tools `ped_*`, the one-call `pipeline.remmax.remmax` and the
-`gmat-tpu-torch` command line (`cli.py`).
-
-Not ported yet (ROADMAP.md queue 1): the `mesh=` argument, `dist/` and the
-command line's `--devices`.
+`gmat-tpu-torch` command line (`cli.py`).  Sharding over several devices
+and processes: `gmat_tpu_torch.dist` (`make_mesh`,
+`initialize_multihost`, the `sharded_*` primitives), the `mesh=` argument
+of the GRM, screen, exhaustive-scan and pair-test entry points and the
+command line's `--devices`; `core/roofline.py` logs achieved rates and
+records `torch.profiler` traces (`GMAT_TPU_TRACE_DIR`).
 """
 from gmat_tpu_torch import config  # noqa: F401  -- sets the TF32 policy first
 from gmat_tpu_torch.grm.grm import agmat, dgmat_as, ginbreedcoef  # noqa: F401

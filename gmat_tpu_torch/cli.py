@@ -12,8 +12,11 @@
 
 (also `python -m gmat_tpu_torch.cli ...`).  The global `--device` (default
 `cuda`) goes to every entry point; `--device cpu` runs the plain PyTorch
-versions of the kernels.  `gmat_tpu`'s `--devices N` mesh option and its
-`bench` subcommand are not part of this interface.
+versions of the kernels.  The global `--devices N` shards the GRM, the
+exhaustive scans and the approx pipelines over a mesh of N devices of
+that type (`dist/`): N CUDA devices (0: every visible one), or N virtual
+shards of the CPU.  `gmat_tpu`'s `bench` subcommand is not part of this
+interface.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import logging
 import sys
 
 import numpy as np
+import torch
 
 
 def _load_grms(specs, bed_prefix, device=None):
@@ -44,6 +48,12 @@ def main(argv=None):
     parser.add_argument(
         "--device", default="cuda",
         help="torch device of every computation (default: cuda)",
+    )
+    parser.add_argument(
+        "--devices", type=int, default=None, metavar="N",
+        help="shard the compute over a mesh of N devices of --device's "
+             "type (0 = all local devices; N virtual shards of the CPU; "
+             "omit for one device)",
     )
     sub = parser.add_subparsers(dest="cmd", required=True)
 
@@ -154,16 +164,27 @@ def main(argv=None):
     )
 
     dev = args.device
+    mesh = None
+    if args.devices is not None:
+        from gmat_tpu_torch.dist.mesh import make_mesh
+
+        try:
+            if torch.device(dev).type == "cpu":
+                mesh = make_mesh(devices=["cpu"] * max(args.devices, 1))
+            else:
+                mesh = make_mesh(args.devices or None)
+        except (RuntimeError, ValueError) as err:
+            parser.error(f"--devices {args.devices}: {err}")
     if args.cmd == "agmat":
         from gmat_tpu_torch.grm.grm import agmat
 
         agmat(args.bed_prefix, inv=args.inv, small_val=args.small_val,
-              out_fmt=args.out_fmt, device=dev)
+              out_fmt=args.out_fmt, device=dev, mesh=mesh)
     elif args.cmd == "dgmat":
         from gmat_tpu_torch.grm.grm import dgmat_as
 
         dgmat_as(args.bed_prefix, inv=args.inv, small_val=args.small_val,
-                 out_fmt=args.out_fmt, device=dev)
+                 out_fmt=args.out_fmt, device=dev, mesh=mesh)
     elif args.cmd == "inbreed":
         from gmat_tpu_torch.grm.grm import ginbreedcoef
 
@@ -195,7 +216,7 @@ def main(argv=None):
         else:
             fn = getattr(pairs, f"remma_epi{kind}")
             fn(args.pheno, args.bed_prefix, gmat_lst, var, p_cut=args.p_cut,
-               out_file=args.out, device=dev)
+               out_file=args.out, device=dev, mesh=mesh)
     elif args.cmd.endswith("approx"):
         from gmat_tpu_torch.scan import screen
 
@@ -207,7 +228,7 @@ def main(argv=None):
         getattr(screen, name)(args.pheno, args.bed_prefix, gmat_lst, var,
                               p_cut=args.p_cut,
                               num_random_pair=args.num_random_pair,
-                              out_file=args.out, device=dev)
+                              out_file=args.out, device=dev, mesh=mesh)
     elif args.cmd == "annotate":
         from gmat_tpu_torch.scan.annotation import annotation_snp_pos
 

@@ -1,0 +1,68 @@
+"""Roofline logging and a profiler hook (counterpart of
+`gmat_tpu/core/roofline.py`).
+
+`log_phase` logs a phase's achieved FLOP rate against the card's peak,
+and `maybe_trace` records a `torch.profiler` trace of whatever runs inside
+it when `GMAT_TPU_TRACE_DIR` is set.
+
+Peak: the default 67 TFLOP/s is the published rate of one NVIDIA H100
+SXM (80 GB HBM3) at its 700 W power limit for the two types whose work is
+logged: float32 on the CUDA cores (the effect screen, kernel K1) and
+float64 on the tensor cores (DMMA, the exact scan, kernel K2).  Set
+`GMAT_TPU_PEAK_TFLOPS` for another card, a lower power limit or a CPU run.
+"""
+from __future__ import annotations
+
+import contextlib
+import logging
+import os
+import time
+
+logger = logging.getLogger(__name__)
+
+_DEFAULT_PEAK_TFLOPS = 67.0
+
+
+def peak_tflops() -> float:
+    """The FLOP rate that achieved rates are held against, in TFLOP/s."""
+    return float(os.environ.get("GMAT_TPU_PEAK_TFLOPS",
+                                _DEFAULT_PEAK_TFLOPS))
+
+
+def log_phase(name: str, flops: float, seconds: float,
+              items: float | None = None, unit: str = "pairs") -> float:
+    """Log one phase's achieved TFLOP/s against the peak; returns it.
+
+    `items` / `unit` add the domain rate (e.g. pairs/s) to the line."""
+    tf = flops / max(seconds, 1e-12) / 1e12
+    pct = 100.0 * tf / peak_tflops()
+    extra = ""
+    if items is not None:
+        extra = " | %.3g %s/s" % (items / max(seconds, 1e-12), unit)
+    logger.info("Roofline %s: %.2f TF/s (%.0f%% of %.0f TF/s peak), %.3f s%s",
+                name, tf, pct, peak_tflops(), seconds, extra)
+    return tf
+
+
+@contextlib.contextmanager
+def maybe_trace(label: str = "gmat"):
+    """With GMAT_TPU_TRACE_DIR set, a `torch.profiler` trace (host and,
+    where there is a card, CUDA activity) of the body, written as a Chrome
+    trace under $GMAT_TPU_TRACE_DIR/<label>/; without it, nothing."""
+    trace_dir = os.environ.get("GMAT_TPU_TRACE_DIR")
+    if not trace_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    out_dir = os.path.join(trace_dir, label)
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    path = os.path.join(out_dir, f"{os.getpid()}.{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    logger.info("torch.profiler trace written to %s", path)

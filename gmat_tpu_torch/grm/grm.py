@@ -4,6 +4,8 @@ inbreeding coefficients.
 Counterpart of `gmat_tpu/grm/grm.py`: K = M Mᵀ / scale as one float64 Gram
 product (`torch.matmul`, as the JAX package leaves it to XLA), diagonal
 inflated by (1 + small_val), written in the reference's file formats.
+With `mesh=`, the SNP columns are split over its shards, each forming a
+partial Gram, summed over the mesh (`dist/mesh.py::sharded_additive_grm`).
 """
 from __future__ import annotations
 
@@ -38,8 +40,8 @@ def dominance_grm(geno, small_val=0.001):
     return _gram(mat, scale, small_val)
 
 
-def _run_grm(bed_prefix, kind, inv, small_val, out_fmt, impute_seed, device):
-    dev = resolve_device(device)
+def _run_grm(bed_prefix, kind, inv, small_val, out_fmt, impute_seed, device,
+             mesh=None):
     bed = Bed(bed_prefix)
     geno = bed.read()
     if np.any(np.isnan(geno)):
@@ -47,10 +49,18 @@ def _run_grm(bed_prefix, kind, inv, small_val, out_fmt, impute_seed, device):
                     impute_seed)
         geno = impute_geno(geno, seed=impute_seed)
     logger.info("There are %d individuals and %d SNPs.", *geno.shape)
-    fn = additive_grm if kind == "add" else dominance_grm
     suffix, inv_suffix = ((".agrm", ".agiv") if kind == "add"
                           else (".dgrm_as", ".dgiv_as"))
-    kin_d = fn(torch.as_tensor(geno, dtype=EXACT_DTYPE, device=dev), small_val)
+    if mesh is not None:
+        from gmat_tpu_torch.dist.mesh import (sharded_additive_grm,
+                                              sharded_dominance_grm)
+
+        fn = sharded_additive_grm if kind == "add" else sharded_dominance_grm
+        kin_d = fn(geno, mesh, small_val)
+    else:
+        fn = additive_grm if kind == "add" else dominance_grm
+        kin_d = fn(torch.as_tensor(geno, dtype=EXACT_DTYPE,
+                                   device=resolve_device(device)), small_val)
     kin = kin_d.cpu().numpy()
     ids = np.array(bed.fam["iid"])
     write_grm(kin, ids, bed_prefix + suffix, out_fmt)
@@ -62,19 +72,23 @@ def _run_grm(bed_prefix, kind, inv, small_val, out_fmt, impute_seed, device):
 
 
 def agmat(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
-          out_fmt: str = "mat", impute_seed: int = 0, device=None):
+          out_fmt: str = "mat", impute_seed: int = 0, device=None,
+          mesh=None):
     """Additive GRM (and optional inverse); writes `<prefix>.agrm*`.
-    Returns (kin, kin_inv) as host arrays."""
+    Returns (kin, kin_inv) as host arrays.  With `mesh`, the Gram product
+    shards SNP columns over it."""
     return _run_grm(bed_prefix, "add", inv, small_val, out_fmt, impute_seed,
-                    device)
+                    device, mesh)
 
 
 def dgmat_as(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
-             out_fmt: str = "mat", impute_seed: int = 0, device=None):
+             out_fmt: str = "mat", impute_seed: int = 0, device=None,
+             mesh=None):
     """Dominance GRM (and optional inverse); writes `<prefix>.dgrm_as*`.
-    Returns (kin, kin_inv) as host arrays."""
+    Returns (kin, kin_inv) as host arrays.  With `mesh`, the Gram product
+    shards SNP columns over it."""
     return _run_grm(bed_prefix, "dom", inv, small_val, out_fmt, impute_seed,
-                    device)
+                    device, mesh)
 
 
 def _inbreed_stats(geno):

@@ -5,7 +5,7 @@ gmat_lst, var_com, bed_file, ...)` keeps the additive x additive pairs
 (i, j > i) of an anchor list with |eff| > eff_cut, writes them with
 `np.savetxt(header='snp_0 snp_1 eff')` and returns them as a float array.
 The whole scan is one call of the screen kernel K1
-(`scan/kernels.py::screen_hits`), so the reference's `max_test_pair` column
+(`scan/kernels.py::screen_positions`), so the reference's `max_test_pair` column
 streaming has no counterpart (accepted and ignored).  The default
 `eff_cut=-999.0` keeps every tested pair, exact zeros included.
 

@@ -8,7 +8,9 @@ projections of the phenotype under the null model:
 
 with P = V⁻¹ − V⁻¹X(XᵀV⁻¹X)⁻¹XᵀV⁻¹ and V = Σ_i σ²_i Z G_i Zᵀ + σ²_e I,
 computed once per (model, variance) pair in float64 and reused by every
-stage of a pipeline through the identity caches below.
+stage of a pipeline through the identity caches below.  Each cache holds
+one entry per device, so that the shards of a mesh (`dist/`) on several
+devices keep their own copies between calls.
 """
 from __future__ import annotations
 
@@ -66,26 +68,48 @@ def score_pieces_from_numpy(pymat, pvpmat, device=None) -> ScorePieces:
                                device=dev))
 
 
-_PIECES_CACHE: dict = {}
+def _slot(device) -> torch.device:
+    """The cache slot of a device: the device itself, with a CUDA device
+    that names no index taken as the current one (a tensor's device always
+    names its index)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+_PIECES_CACHE: dict = {}  # device -> (key, (dm, GRMs), ScorePieces)
 
 
 def score_pieces_cached(dm: DesignMatrices, gmat_lst, var_com,
                         device=None) -> ScorePieces:
-    """`score_pieces` with a size-1 cache keyed by the identities of the
-    inputs (dm, each GRM), the variance values and the device.
+    """`score_pieces` with one entry per device, keyed by the identities of
+    the inputs (dm, each GRM) and the variance values.
 
     The approx pipeline's calibrate, screen and re-test stages all ask for
     the same pieces; entries hold strong references, so an id is never
-    recycled while cached, and any fresh object is a miss."""
-    dev = resolve_device(device)
+    recycled while cached, and any fresh object is a miss.  A device that
+    misses copies the pieces of another device of its type that holds the
+    same key, so that a mesh's replicas are the same numbers."""
+    dev = _slot(device)
     key = (id(dm), tuple(id(g) for g in gmat_lst),
-           np.asarray(var_com, dtype=np.float64).tobytes(), str(dev))
-    ent = _PIECES_CACHE.get("ent")
-    if ent is not None and ent[0] == key and ent[1][0] is dm \
-            and all(a is b for a, b in zip(ent[1][1], gmat_lst)):
+           np.asarray(var_com, dtype=np.float64).tobytes())
+
+    def same(ent):
+        return (ent[0] == key and ent[1][0] is dm
+                and all(a is b for a, b in zip(ent[1][1], gmat_lst)))
+
+    ent = _PIECES_CACHE.get(dev)
+    if ent is not None and same(ent):
         return ent[2]
-    pieces = score_pieces(dm, gmat_lst, var_com, dev)
-    _PIECES_CACHE["ent"] = (key, (dm, tuple(gmat_lst)), pieces)
+    src = next((e[2] for d, e in _PIECES_CACHE.items()
+                if d.type == dev.type and same(e)), None)
+    if src is None:
+        pieces = score_pieces(dm, gmat_lst, var_com, dev)
+    else:
+        pieces = ScorePieces(pymat=src.pymat.to(dev),
+                             pvpmat=src.pvpmat.to(dev))
+    _PIECES_CACHE[dev] = (key, (dm, tuple(gmat_lst)), pieces)
     return pieces
 
 
@@ -118,7 +142,7 @@ def prepare_genotypes(bed_prefix: str, impute_seed: int = 0):
     return geno, bed.bim, bed.fam
 
 
-_DEVICE_GENO_CACHE: dict = {}
+_DEVICE_GENO_CACHE: dict = {}  # device -> (key, (n, m) float64 panel)
 _MISSING_BYTE_LUT = np.array(
     [any(((b >> s) & 3) == 1 for s in (0, 2, 4, 6)) for b in range(256)],
     dtype=bool,
@@ -141,17 +165,18 @@ def _unpack_f64_device(raw, num_id):
 
 def prepare_genotypes_device(bed_prefix: str, impute_seed: int = 0,
                              device=None):
-    """Device-resident (n, m) float64 genotype panel with a size-1 cache,
-    keyed by (path, .bed mtime, seed, device).
+    """Device-resident (n, m) float64 genotype panel, one cached per
+    device, keyed by (path, .bed mtime, seed).
 
     A panel without missing genotypes (checked from the packed bytes with a
     256-entry table) crosses to the device as packed 2-bit codes and is
     unpacked there; one with missing genotypes is imputed on the host and
     uploaded dense.  Returns (geno_device (n, m) float64, num_snp)."""
-    dev = resolve_device(device)
+    dev = _slot(device)
     key = (str(bed_prefix), os.path.getmtime(str(bed_prefix) + ".bed"),
-           impute_seed, str(dev))
-    if _DEVICE_GENO_CACHE.get("key") != key:
+           impute_seed)
+    ent = _DEVICE_GENO_CACHE.get(dev)
+    if ent is None or ent[0] != key:
         from gmat_tpu_torch.io.bed import Bed
 
         bed = Bed(bed_prefix)
@@ -171,37 +196,34 @@ def prepare_genotypes_device(bed_prefix: str, impute_seed: int = 0,
         else:
             dev_geno = _unpack_f64_device(torch.as_tensor(raw, device=dev),
                                           bed.num_id)
-        _DEVICE_GENO_CACHE.clear()
-        _CODING_CACHE.clear()
-        _DEVICE_GENO_CACHE.update(key=key, dev=dev_geno)
-    dev_geno = _DEVICE_GENO_CACHE["dev"]
-    return dev_geno, dev_geno.shape[1]
+        _CODING_CACHE.pop(dev, None)
+        ent = _DEVICE_GENO_CACHE[dev] = (key, dev_geno)
+    return ent[1], ent[1].shape[1]
 
 
-_CODING_CACHE: dict = {}
+_CODING_CACHE: dict = {}  # device -> (panel, {(kind, dtype): coding})
 
 
 def coded_matrix(g, kind: str, dtype=None):
     """Cached genotype coding of the device panel `g`: `kind` in
     ('add', 'dom'), with an optional dtype cast.
 
-    Keyed by the identity of `g` (entries hold a strong reference, and the
-    cache clears when the panel changes), so the calibrate, screen and
-    re-test stages share one coded copy each."""
+    One panel per device: the entry holds a strong reference to `g` and
+    starts afresh for another panel, so the calibrate, screen and re-test
+    stages share one coded copy each."""
     from gmat_tpu_torch.core.coding import additive_code, dominance_code
 
-    key = (id(g), kind, dtype)
-    ent = _CODING_CACHE.get(key)
-    if ent is not None and ent[0] is g:
-        return ent[1]
-    base_key = (id(g), kind, None)
-    base = _CODING_CACHE.get(base_key)
-    if base is not None and base[0] is g:
-        mat = base[1]
-    else:
+    ent = _CODING_CACHE.get(g.device)
+    if ent is None or ent[0] is not g:
+        ent = _CODING_CACHE[g.device] = (g, {})
+    codings = ent[1]
+    if (kind, dtype) in codings:
+        return codings[(kind, dtype)]
+    mat = codings.get((kind, None))
+    if mat is None:
         mat = (additive_code(g) if kind == "add" else dominance_code(g))[0]
-        _CODING_CACHE[base_key] = (g, mat)
+        codings[(kind, None)] = mat
     if dtype is not None:
         mat = mat.to(dtype).contiguous()
-        _CODING_CACHE[key] = (g, mat)
+        codings[(kind, dtype)] = mat
     return mat

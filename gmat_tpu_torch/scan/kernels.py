@@ -17,9 +17,10 @@ _fused_visit`):
   tiles with a nonzero count and appends their hits to buffers sized
   exactly from the counts — the counterpart of `_screen_extract_factory` /
   `pallas_extract_hot_tiles`;
-- `screen_hits` gathers an anchor subset into one panel, drives both and
-  sorts the hits by (position in the anchor list, j) on the device — the
-  counterpart of `pallas_screen` and of `screen.py::_run_screen_impl`.
+- `screen_positions` / `screen_hits` gather an anchor subset into one
+  panel, drive both and sort the hits by (position in the anchor list, j)
+  on the device — the counterpart of `pallas_screen` and of
+  `screen.py::_run_screen_impl`.
 
 The identity screen (every SNP an anchor of one panel, one flat cut) runs
 the kernels' identity instantiation over the upper-triangle tiles; every
@@ -50,6 +51,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -60,8 +62,11 @@ EXACT_TILE = 128  # partners per exact-scan block; checked likewise
 EXACT_CAPACITY = 1 << 20  # first hit buffer of a thresholded exact scan
 _REF_BLOCK_ELEMS = 1 << 25  # elements of E per step of `exact_hits_ref`
 
-#: kernel launches by this process, by kernel
+#: kernel launches by this process, by kernel (the shards of a mesh
+#: launch from several threads: `_count_launch` holds the lock)
 LAUNCHES = {"screen_count": 0, "screen_extract": 0, "exact_scan": 0}
+_LOCK = threading.Lock()
+_LIB_LOCK = threading.Lock()
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gmat_tpu_torch"
@@ -123,43 +128,55 @@ def build_library() -> Path:
     return out
 
 
+def _count_launch(name):
+    with _LOCK:
+        LAUNCHES[name] += 1
+
+
 def _library():
+    """The kernels' library, built and loaded at first use (under a lock:
+    the shard threads of a mesh may ask for it at once)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build_library()))
-        vp, i32, i64, f32, f64 = (ctypes.c_void_p, ctypes.c_int,
-                                  ctypes.c_int64, ctypes.c_float,
-                                  ctypes.c_double)
-        lib.gmat_screen_tile_edge.restype = i32
-        lib.gmat_screen_tile_edge.argtypes = []
-        lib.gmat_screen_count.restype = i32
-        lib.gmat_screen_count.argtypes = [vp, vp, i32, i64, i32, f32, vp, i32,
-                                          i32, vp]
-        lib.gmat_screen_extract.restype = i32
-        lib.gmat_screen_extract.argtypes = [vp, vp, i32, i64, i32, f32, vp,
-                                            i32, vp, vp, vp, i32, vp, i32, vp]
-        general = [vp, i64, i32, vp, i64, vp, i32, i32, vp, i32, vp, vp, vp,
-                   f32]
-        lib.gmat_screen_count_general.restype = i32
-        lib.gmat_screen_count_general.argtypes = general + [vp, i32, vp, i32,
-                                                            i32, vp]
-        lib.gmat_screen_extract_general.restype = i32
-        lib.gmat_screen_extract_general.argtypes = general + [
-            vp, i32, vp, vp, vp, i32, vp, i32, vp]
-        lib.gmat_exact_tile.restype = i32
-        lib.gmat_exact_tile.argtypes = []
-        lib.gmat_exact_scan.restype = i32
-        lib.gmat_exact_scan.argtypes = [vp, i64, vp, i64, i32, vp, vp, i32,
-                                        vp, i32, f64, i32, i32, vp, vp, vp,
-                                        vp, vp, i32, vp, i32, vp]
-        edge = lib.gmat_screen_tile_edge()
-        if edge != TILE:
-            raise RuntimeError(f"screen library tile edge {edge} != {TILE}")
-        edge = lib.gmat_exact_tile()
-        if edge != EXACT_TILE:
-            raise RuntimeError(f"exact-scan tile {edge} != {EXACT_TILE}")
-        _lib = lib
+    with _LIB_LOCK:
+        if _lib is None:
+            _lib = _load_library()
     return _lib
+
+
+def _load_library():
+    lib = ctypes.CDLL(str(build_library()))
+    vp, i32, i64, f32, f64 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_int64, ctypes.c_float,
+                              ctypes.c_double)
+    lib.gmat_screen_tile_edge.restype = i32
+    lib.gmat_screen_tile_edge.argtypes = []
+    lib.gmat_screen_count.restype = i32
+    lib.gmat_screen_count.argtypes = [vp, vp, i32, i64, i32, f32, vp, i32,
+                                      i32, vp]
+    lib.gmat_screen_extract.restype = i32
+    lib.gmat_screen_extract.argtypes = [vp, vp, i32, i64, i32, f32, vp,
+                                        i32, vp, vp, vp, i32, vp, i32, vp]
+    general = [vp, i64, i32, vp, i64, vp, i32, i32, vp, i32, vp, vp, vp,
+               f32]
+    lib.gmat_screen_count_general.restype = i32
+    lib.gmat_screen_count_general.argtypes = general + [vp, i32, vp, i32,
+                                                        i32, vp]
+    lib.gmat_screen_extract_general.restype = i32
+    lib.gmat_screen_extract_general.argtypes = general + [
+        vp, i32, vp, vp, vp, i32, vp, i32, vp]
+    lib.gmat_exact_tile.restype = i32
+    lib.gmat_exact_tile.argtypes = []
+    lib.gmat_exact_scan.restype = i32
+    lib.gmat_exact_scan.argtypes = [vp, i64, vp, i64, i32, vp, vp, i32,
+                                    vp, i32, f64, i32, i32, vp, vp, vp,
+                                    vp, vp, i32, vp, i32, vp]
+    edge = lib.gmat_screen_tile_edge()
+    if edge != TILE:
+        raise RuntimeError(f"screen library tile edge {edge} != {TILE}")
+    edge = lib.gmat_exact_tile()
+    if edge != EXACT_TILE:
+        raise RuntimeError(f"exact-scan tile {edge} != {EXACT_TILE}")
+    return lib
 
 
 @dataclass(frozen=True)
@@ -448,7 +465,7 @@ def screen_counts(mat, py, cut, m, *, b=None, ids=None):
             *_general_args(mat, py, cut, m, b, ids), work.data_ptr(),
             len(work), counts.data_ptr(), t_b, *_launch_args(mat))
     _raise_on(rc, "gmat_screen_count")
-    LAUNCHES["screen_count"] += 1
+    _count_launch("screen_count")
     return counts
 
 
@@ -481,7 +498,7 @@ def screen_extract(mat, py, cut, m, counts, *, b=None, ids=None):
         rc = _library().gmat_screen_extract_general(
             *_general_args(mat, py, cut, m, b, ids), *tail)
     _raise_on(rc, "gmat_screen_extract")
-    LAUNCHES["screen_extract"] += 1
+    _count_launch("screen_extract")
     cursor, overflow = state.tolist()
     if overflow or cursor != total:
         raise RuntimeError(f"screen extraction found {cursor} hits "
@@ -490,12 +507,12 @@ def screen_extract(mat, py, cut, m, counts, *, b=None, ids=None):
     return out_p, out_j, out_e
 
 
-def screen_hits(mat, py, cut, m, *, b=None, anchors=None):
-    """The two-phase screen: (i int64, j int64, eff float32) of every pair
-    of an anchor i of `anchors` (SNP ids, columns of mat; None for every
-    SNP) and a partner j of b (mat when None), j > i, j < m, with |S[i, j]|
-    above `cut` (a float or a `CutTable`), sorted on mat's device by
-    (position in the anchor list, j): (i, j) for an ascending list."""
+def screen_positions(mat, py, cut, m, *, b=None, anchors=None):
+    """The two-phase screen: (p int64, j int64, eff float32) of every pair
+    of the anchor at position p of `anchors` (SNP ids, columns of mat;
+    None for every SNP, p then being the SNP id) and a partner j of b (mat
+    when None), j > anchor, j < m, with |S| above `cut` (a float or a
+    `CutTable`), sorted on mat's device by (p, j)."""
     a, ids = anchor_panel(mat, anchors, m)
     if b is None and ids is not None:
         b = mat
@@ -503,8 +520,17 @@ def screen_hits(mat, py, cut, m, *, b=None, anchors=None):
     p, j, eff = screen_extract(a, py, cut, m, counts, b=b, ids=ids)
     p, j = p.to(torch.int64), j.to(torch.int64)
     order = torch.argsort(p * m + j)
-    i = p[order] if ids is None else ids.long()[p[order]]
-    return i, j[order], eff[order]
+    return p[order], j[order], eff[order]
+
+
+def screen_hits(mat, py, cut, m, *, b=None, anchors=None):
+    """`screen_positions` with each position replaced by its anchor's SNP
+    id: (i int64, j int64, eff float32), (i, j)-sorted for an ascending
+    anchor list."""
+    p, j, eff = screen_positions(mat, py, cut, m, b=b, anchors=anchors)
+    if anchors is None:
+        return p, j, eff
+    return anchors.to(device=p.device, dtype=torch.int64)[p], j, eff
 
 
 # the exact scan ---------------------------------------------------------------
@@ -642,7 +668,7 @@ def exact_hits(mat0, mat1, py, pvp, anchors, chi_crit, mask, center=False):
             vals[1].data_ptr(), vals[2].data_ptr(), cap, state.data_ptr(),
             *_launch_args(mat0))
         _raise_on(rc, "gmat_exact_scan")
-        LAUNCHES["exact_scan"] += 1
+        _count_launch("exact_scan")
         cursor, overflow = state.tolist()
         if overflow != max(cursor - cap, 0):
             raise RuntimeError(f"exact scan: cursor {cursor}, capacity {cap}, "

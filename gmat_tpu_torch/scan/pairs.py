@@ -15,6 +15,11 @@ p = P[χ²₁ > chi], all in float64 on the pieces' device.
 - `remma_epi*_pair`: an explicit pair list, `max_test_pair` pairs at a
   time in chunks padded to one canonical width, written as
   `snp_0 snp_1 eff var chi p` rows with p < p_cut.
+
+With `mesh=` (`dist/`), each round of an exhaustive scan hands one anchor
+run to each shard, and each step of a pair test one chunk of the same
+canonical width to each shard; the rows are written in the order of one
+device's run, so the files are the same bytes.
 """
 from __future__ import annotations
 
@@ -27,7 +32,10 @@ import torch
 
 from gmat_tpu_torch.config import resolve_device
 from gmat_tpu_torch.core.coding import additive_code, dominance_code
+from gmat_tpu_torch.core.roofline import log_phase, maybe_trace
 from gmat_tpu_torch.core.stats import chi2_isf, chi2_sf
+from gmat_tpu_torch.dist.mesh import (_gather_rows, _map_shards, _replica,
+                                      _replicate)
 
 logger = logging.getLogger(__name__)
 
@@ -56,18 +64,27 @@ def _coded_panels(bed_prefix, kind, device=None):
     return coded_matrix(g, k0), coded_matrix(g, k1), num_snp, _CODINGS[kind][2]
 
 
-def _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, device=None):
+def _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, device=None,
+               mesh=None):
     """Pipeline-stage setup through the identity caches: the design parse,
     the O(n³) score pieces and the (n, m) coded panels are computed once
-    and shared by the calibrate, screen and re-test stages."""
+    and shared by the calibrate, screen and re-test stages.  With `mesh`,
+    mat0, mat1 and the pieces are {device: value} maps over its devices."""
     from gmat_tpu_torch.scan.common import (design_matrix_cached,
                                             score_pieces_cached)
 
-    dev = resolve_device(device)
-    dm = design_matrix_cached(pheno_file, bed_prefix)
-    pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
-    mat0, mat1, num_snp, triangular = _coded_panels(bed_prefix, kind, dev)
-    return mat0, mat1, pieces, num_snp, triangular
+    def setup(dev):
+        dm = design_matrix_cached(pheno_file, bed_prefix)
+        pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
+        mat0, mat1, num_snp, triangular = _coded_panels(bed_prefix, kind, dev)
+        return mat0, mat1, pieces, num_snp, triangular
+
+    if mesh is None:
+        return setup(resolve_device(device))
+    reps = _replicate(mesh, setup)
+    first = next(iter(reps.values()))
+    return tuple({dev: r[k] for dev, r in reps.items()}
+                 for k in range(3)) + first[3:]
 
 
 def _pair_kernel(cols0, cols1, mat0, mat1, pymat, pvpmat):
@@ -80,18 +97,20 @@ def _pair_kernel(cols0, cols1, mat0, mat1, pymat, pvpmat):
 
 def _remma_epi_pair(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                     snp_pair_file, max_test_pair, p_cut, out_file,
-                    device=None):
+                    device=None, mesh=None):
     """Exact test for an explicit pair list, chunked max_test_pair at a time."""
     mat0, mat1, pieces, num_snp, _ = _epi_setup(
-        pheno_file, bed_prefix, gmat_lst, var_com, kind, device)
+        pheno_file, bed_prefix, gmat_lst, var_com, kind, device, mesh)
     return _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file,
-                      max_test_pair, p_cut, out_file)
+                      max_test_pair, p_cut, out_file, mesh)
 
 
 def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
-               p_cut, out_file):
+               p_cut, out_file, mesh=None):
     """The pairs of `snp_pair_file` (header line, then `snp_0 snp_1 ...`)
-    through `_pair_kernel`, rows with p < p_cut written to `out_file`."""
+    through `_pair_kernel`, rows with p < p_cut written to `out_file`.
+    With `mesh` (mat0, mat1 and pieces then as `_epi_setup` gives them),
+    each step hands one chunk to each shard."""
     try:
         pairs = pd.read_csv(snp_pair_file, sep=r"\s+", usecols=[0, 1],
                             skiprows=1, header=None).to_numpy(dtype=np.int64)
@@ -108,52 +127,60 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
         width = min(max_test_pair,
                     max(8, 1 << int(len(pairs) - 1).bit_length()))
     np.savetxt(out_file, [_HEADER_PAIR], fmt="%s")
-    dev = mat0.device
+    n_shards = 1 if mesh is None else mesh.size
+
+    def shard(dev, chunk):
+        if not len(chunk):
+            empty = np.empty(0)
+            return chunk[:, 0], chunk[:, 1], empty, empty, empty, empty
+        cpad = np.concatenate(
+            [chunk, np.repeat(chunk[-1:], width - len(chunk), 0)])
+        cpad_d = torch.as_tensor(cpad, device=dev)
+        pc = _replica(pieces, dev)
+        outs = _pair_kernel(cpad_d[:, 0], cpad_d[:, 1], _replica(mat0, dev),
+                            _replica(mat1, dev), pc.pymat, pc.pvpmat)
+        eff, var, chi, p = (a[: len(chunk)].cpu().numpy() for a in outs)
+        keep = p < p_cut
+        return (chunk[keep, 0], chunk[keep, 1], eff[keep], var[keep],
+                chi[keep], p[keep])
+
     with open(out_file, "a") as fout:
-        for start in range(0, len(pairs), width):
-            chunk = pairs[start:start + width]
-            cpad = np.concatenate(
-                [chunk, np.repeat(chunk[-1:], width - len(chunk), 0)])
-            cpad_d = torch.as_tensor(cpad, device=dev)
-            outs = _pair_kernel(cpad_d[:, 0], cpad_d[:, 1], mat0, mat1,
-                                pieces.pymat, pieces.pvpmat)
-            eff, var, chi, p = (a[: len(chunk)].cpu().numpy() for a in outs)
-            keep = p < p_cut
-            pd.DataFrame(
-                {
-                    0: chunk[keep, 0],
-                    1: chunk[keep, 1],
-                    2: eff[keep],
-                    3: var[keep],
-                    4: chi[keep],
-                    5: p[keep],
-                }
-            ).to_csv(fout, sep=" ", header=False, index=False)
+        for start in range(0, len(pairs), width * n_shards):
+            chunks = [pairs[start + k * width:start + (k + 1) * width]
+                      for k in range(n_shards)]
+            if mesh is None:
+                rows = [shard(mat0.device, chunks[0])]
+            else:
+                rows = _gather_rows(mesh, _map_shards(
+                    mesh, shard, [chunks[k] for k in mesh.shard_ids]))
+            for cols in rows:
+                pd.DataFrame(dict(enumerate(cols))).to_csv(
+                    fout, sep=" ", header=False, index=False)
     return 0
 
 
 def remma_epiAA_pair(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file,
                      max_test_pair=50000, p_cut=1.0e-4, out_file="epiAA_pair",
-                     device=None):
+                     device=None, mesh=None):
     return _remma_epi_pair("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                            snp_pair_file, max_test_pair, p_cut, out_file,
-                           device)
+                           device, mesh)
 
 
 def remma_epiAD_pair(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file,
                      max_test_pair=50000, p_cut=1.0e-4, out_file="epiAD_pair",
-                     device=None):
+                     device=None, mesh=None):
     return _remma_epi_pair("AD", pheno_file, bed_prefix, gmat_lst, var_com,
                            snp_pair_file, max_test_pair, p_cut, out_file,
-                           device)
+                           device, mesh)
 
 
 def remma_epiDD_pair(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file,
                      max_test_pair=50000, p_cut=1.0e-4, out_file="epiDD_pair",
-                     device=None):
+                     device=None, mesh=None):
     return _remma_epi_pair("DD", pheno_file, bed_prefix, gmat_lst, var_com,
                            snp_pair_file, max_test_pair, p_cut, out_file,
-                           device)
+                           device, mesh)
 
 
 # the exhaustive scans ---------------------------------------------------------
@@ -188,13 +215,28 @@ def _has_intercept(dm) -> bool:
 
 
 def _scan_anchors(mat0, mat1, pieces, snp_lst_0, num_snp, triangular, p_cut,
-                  out_file, center=False):
+                  out_file, center=False, mesh=None):
     """Every anchor of `snp_lst_0` against every partner (j > anchor when
     `triangular`) through the exact-scan kernel, rows with p < p_cut
     written as `snp_0 snp_1 eff chi p_val`, anchors in list order and
     partners ascending.  chi > chi2.isf(p_cut, 1) on the device is the
     reference's p < p_cut; a p_cut of 1 or more keeps every pair whose chi
-    is not NaN.  `center`: see `kernels.exact_hits`."""
+    is not NaN.  `center`: see `kernels.exact_hits`.
+
+    The anchors go in runs of at most `_SCAN_PAIR_BUDGET` pairs, one run
+    per shard and round with `mesh` (mat0, mat1 and pieces then as
+    `_epi_setup` gives them), written in list order.  Traced under
+    "exact_scan" (`maybe_trace`); the roofline line counts the least
+    FLOP of a pair, n² + 7n for a symmetric pvpmat (the JAX package's
+    counts 2n² + 4n, the whole product P·e)."""
+    with maybe_trace("exact_scan"):
+        return _scan_anchors_impl(mat0, mat1, pieces, snp_lst_0, num_snp,
+                                  triangular, p_cut, out_file, center, mesh)
+
+
+def _scan_anchors_impl(mat0, mat1, pieces, snp_lst_0, num_snp, triangular,
+                       p_cut, out_file, center, mesh):
+    from gmat_tpu_torch.dist.mesh import _any_replica
     from gmat_tpu_torch.scan.kernels import exact_hits, pairs_per_anchor
 
     np.savetxt(out_file, [_HEADER_SCAN], fmt="%s")
@@ -202,22 +244,44 @@ def _scan_anchors(mat0, mat1, pieces, snp_lst_0, num_snp, triangular, p_cut,
     chi_crit = chi2_isf(p_cut, 1) if p_cut < 1.0 else -1.0
     mask = "tri" if triangular else "rect"
     per = pairs_per_anchor(torch.from_numpy(anchors), num_snp, mask).numpy()
+    runs = list(_anchor_runs(anchors, per, _SCAN_PAIR_BUDGET))
+    n_shards = 1 if mesh is None else mesh.size
     clock_t0 = time.perf_counter()
+
+    def shard(dev, run):
+        if not len(run):
+            empty = np.empty(0)
+            return run, run, empty, empty
+        pc = _replica(pieces, dev)
+        i, j, eff, _, chi = (t.cpu().numpy() for t in exact_hits(
+            _replica(mat0, dev), _replica(mat1, dev), pc.pymat, pc.pvpmat,
+            torch.as_tensor(run, device=dev), chi_crit, mask, center))
+        return i, j, eff, chi
+
     n_hits = 0
     with open(out_file, "a") as fout:
-        for run in _anchor_runs(anchors, per, _SCAN_PAIR_BUDGET):
-            i, j, eff, _, chi = (t.cpu().numpy() for t in exact_hits(
-                mat0, mat1, pieces.pymat, pieces.pvpmat,
-                torch.as_tensor(run, device=mat0.device), chi_crit, mask,
-                center))
-            n_hits += len(i)
-            pd.DataFrame({0: i, 1: j, 2: eff, 3: chi, 4: _chi2_sf_host(chi)}
-                         ).to_csv(fout, sep=" ", header=False, index=False)
+        for r0 in range(0, len(runs), n_shards):
+            group = runs[r0:r0 + n_shards]
+            group += [anchors[:0]] * (n_shards - len(group))
+            if mesh is None:
+                parts = [shard(mat0.device, group[0])]
+            else:
+                parts = _gather_rows(mesh, _map_shards(
+                    mesh, shard, [group[k] for k in mesh.shard_ids]))
+            for i, j, eff, chi in parts:
+                n_hits += len(i)
+                pd.DataFrame({0: i, 1: j, 2: eff, 3: chi,
+                              4: _chi2_sf_host(chi)}
+                             ).to_csv(fout, sep=" ", header=False,
+                                      index=False)
     dt = time.perf_counter() - clock_t0
     n_pairs = int(per.sum())
     logger.info("Exact scan: %d anchors, %d tests, %d hits in %.3f s "
                 "(%.3g pairs/s)", len(anchors), n_pairs, n_hits, dt,
                 n_pairs / max(dt, 1e-9))
+    n = _any_replica(mat0).shape[0]
+    log_phase("exact_scan", float(n_pairs) * (n * n + 7.0 * n), dt,
+              items=n_pairs)
     return 0
 
 
@@ -231,37 +295,38 @@ def _validate_anchors(snp_lst_0, num_snp, triangular):
 
 
 def _remma_epi(kind, pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0,
-               p_cut, out_file, device=None):
+               p_cut, out_file, device=None, mesh=None):
     from gmat_tpu_torch.scan.common import design_matrix_cached
 
     mat0, mat1, pieces, num_snp, triangular = _epi_setup(
-        pheno_file, bed_prefix, gmat_lst, var_com, kind, device)
+        pheno_file, bed_prefix, gmat_lst, var_com, kind, device, mesh)
     snp_lst_0 = _validate_anchors(snp_lst_0, num_snp, triangular)
     # the design is cached: this is the object _epi_setup parsed
     dm = design_matrix_cached(pheno_file, bed_prefix)
     return _scan_anchors(mat0, mat1, pieces, snp_lst_0, num_snp, triangular,
-                         p_cut, out_file, center=_has_intercept(dm))
+                         p_cut, out_file, center=_has_intercept(dm),
+                         mesh=mesh)
 
 
 def remma_epiAA(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
-                p_cut=1.0e-5, out_file="epiAA", device=None):
+                p_cut=1.0e-5, out_file="epiAA", device=None, mesh=None):
     """Exhaustive additive x additive scan (strict upper triangle)."""
     return _remma_epi("AA", pheno_file, bed_prefix, gmat_lst, var_com,
-                      snp_lst_0, p_cut, out_file, device)
+                      snp_lst_0, p_cut, out_file, device, mesh)
 
 
 def remma_epiAD(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
-                p_cut=1.0e-5, out_file="epiAD", device=None):
+                p_cut=1.0e-5, out_file="epiAD", device=None, mesh=None):
     """Exhaustive additive x dominance scan (full ordered rectangle)."""
     return _remma_epi("AD", pheno_file, bed_prefix, gmat_lst, var_com,
-                      snp_lst_0, p_cut, out_file, device)
+                      snp_lst_0, p_cut, out_file, device, mesh)
 
 
 def remma_epiDD(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
-                p_cut=1.0e-5, out_file="epiDD", device=None):
+                p_cut=1.0e-5, out_file="epiDD", device=None, mesh=None):
     """Exhaustive dominance x dominance scan (strict upper triangle)."""
     return _remma_epi("DD", pheno_file, bed_prefix, gmat_lst, var_com,
-                      snp_lst_0, p_cut, out_file, device)
+                      snp_lst_0, p_cut, out_file, device, mesh)
 
 
 def balanced_anchor_split(num_snp: int, n_parts: int, part: int,

@@ -20,10 +20,11 @@ is bins_a[anchor]*10 + bins_b[partner] in both, as in the reference's C
 kernel.
 
 The screen is S = (A ⊙ py)ᵀ B in float32 on the hand-written Hopper kernel
-K1 (`scan/kernels.py::screen_hits`), for every kind, anchor list and cut
+K1 (`scan/kernels.py::screen_positions`), for every kind, anchor list and cut
 table; its FMA is full float32, so no threshold slack is applied.
-Survivors are re-tested exactly in float64.  Not ported: the `mesh=`
-argument of the JAX package's entry points.
+Survivors are re-tested exactly in float64.  With `mesh=` (`dist/`), the
+anchors of each sweep are shared round-robin over the mesh's shards, the
+calibration and the re-test chunks likewise (`scan/pairs.py`).
 """
 from __future__ import annotations
 
@@ -36,8 +37,11 @@ import pandas as pd
 import torch
 
 from gmat_tpu_torch.config import SCREEN_DTYPE, resolve_device
+from gmat_tpu_torch.core.roofline import log_phase, maybe_trace
 from gmat_tpu_torch.core.stats import chi2_isf
-from gmat_tpu_torch.scan.kernels import CutTable, screen_hits
+from gmat_tpu_torch.dist.mesh import (_any_replica, _gather_rows,
+                                      _map_shards, _replica, _replicate)
+from gmat_tpu_torch.scan.kernels import CutTable, screen_positions
 
 logger = logging.getLogger(__name__)
 
@@ -49,28 +53,62 @@ def _screen_slack() -> float:
 
 
 def _run_screen(a_mat, b_mat, pymat, anchors, bins_a, bins_b, table,
-                flip_output=False):
+                flip_output=False, mesh=None):
     """Screen driver: (i, j, eff) host arrays of the pairs of an anchor i of
     `anchors` (columns of a_mat) and a partner j > i of b_mat with
     |S| > table[bins_a[i]*10 + bins_b[j]], anchors in list order and
     partners ascending; with `flip_output` each row is written (j, i).
+    The table is cast to float32; a flat table is one cut.
 
-    The table is cast to float32; a flat table is one cut."""
+    With `mesh`, position k of the anchor list goes to shard k mod D and
+    the shards' rows merge on (position, partner); a_mat, b_mat and pymat
+    are then tensors on the shards' one device or {device: tensor} maps
+    from `dist.mesh._replicate`.  Traced under "screen" (`maybe_trace`)."""
+    with maybe_trace("screen"):
+        return _run_screen_impl(a_mat, b_mat, pymat, anchors, bins_a, bins_b,
+                                table, flip_output, mesh)
+
+
+def _run_screen_impl(a_mat, b_mat, pymat, anchors, bins_a, bins_b, table,
+                     flip_output, mesh):
+    t0 = time.perf_counter()
     table = np.asarray(table, dtype=np.float32) * np.float32(
         1.0 - _screen_slack())
-    m = b_mat.shape[1]
-    dev = a_mat.device
-    if np.ptp(table) == 0.0:
-        cut = float(table[0])
+    anchors = np.asarray(list(anchors), dtype=np.int64)
+    n_shards = 1 if mesh is None else mesh.size
+    n, m = _any_replica(a_mat).shape[0], _any_replica(b_mat).shape[1]
+
+    def shard(dev, k):
+        pos = np.arange(k, len(anchors), n_shards)
+        if not len(pos):
+            return pos, pos, np.empty(0, dtype=np.float32)
+        a, b, py = (_replica(x, dev) for x in (a_mat, b_mat, pymat))
+        if np.ptp(table) == 0.0:
+            cut = float(table[0])
+        else:
+            cut = CutTable(*(torch.as_tensor(np.asarray(x, dtype=dt),
+                                             device=dev)
+                             for x, dt in ((bins_a, np.int32),
+                                           (bins_b, np.int32),
+                                           (table, np.float32))))
+        p, j, eff = screen_positions(
+            a, py, cut, m, b=None if b is a else b,
+            anchors=torch.as_tensor(anchors[pos]))
+        return pos[p.cpu().numpy()], j.cpu().numpy(), eff.cpu().numpy()
+
+    if mesh is None:
+        parts = [shard(a_mat.device, 0)]
     else:
-        cut = CutTable(
-            torch.as_tensor(np.asarray(bins_a, dtype=np.int32), device=dev),
-            torch.as_tensor(np.asarray(bins_b, dtype=np.int32), device=dev),
-            torch.as_tensor(table, device=dev))
-    i, j, eff = screen_hits(
-        a_mat, pymat, cut, m, b=None if b_mat is a_mat else b_mat,
-        anchors=torch.as_tensor(np.asarray(anchors, dtype=np.int64)))
-    i, j, eff = (t.cpu().numpy() for t in (i, j, eff))
+        parts = _gather_rows(mesh, _map_shards(mesh, shard,
+                                               list(mesh.shard_ids)))
+    pos, j, eff = (np.concatenate(col) for col in zip(*parts))
+    if mesh is not None:
+        order = np.argsort(pos * m + j, kind="stable")
+        pos, j, eff = pos[order], j[order], eff[order]
+    i = anchors[pos]
+    pairs = float(np.maximum(m - 1 - anchors, 0).sum())
+    log_phase("screen", 2.0 * n * pairs, time.perf_counter() - t0,
+              items=pairs)
     return (j, i, eff) if flip_output else (i, j, eff)
 
 
@@ -104,7 +142,7 @@ def _write_screen(out_file, idx0, idx1, eff):
 
 def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                    snp_lst_0, eff_cut_table, bins_a, bins_b, out_file,
-                   maf=False, dm=None, device=None):
+                   maf=False, dm=None, device=None, mesh=None):
     """Shared driver of the *_eff / *_maf_eff family.
 
     eff_cut_table: (111,) per-bin-pair |eff| cuts (flat for the non-MAF
@@ -112,20 +150,31 @@ def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     partner (table column), equal except for AD, whose anchor side bins by
     MAF and partner side by heterozygote frequency in BOTH orientations.
     Writes `snp_0 snp_1 eff` rows and returns the hit arrays.  `dm`
-    overrides the phenotype-file parse with a (y, xmat, zmat) design."""
+    overrides the phenotype-file parse with a (y, xmat, zmat) design.
+    With `mesh`, each sweep runs over its shards, from the per-device
+    caches filled here for each of its devices."""
     from gmat_tpu_torch.scan.common import (coded_matrix, design_matrix_cached,
                                             prepare_genotypes_device,
                                             score_pieces_cached)
 
-    dev = resolve_device(device)
     if dm is None:
         dm = design_matrix_cached(pheno_file, bed_prefix)
     t0 = time.perf_counter()
-    pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
-    g, num_snp = prepare_genotypes_device(bed_prefix, device=dev)
-    a_full = coded_matrix(g, "add", SCREEN_DTYPE) if kind != "DD" else None
-    d_full = coded_matrix(g, "dom", SCREEN_DTYPE) if kind != "AA" else None
-    py = pieces.pymat.to(SCREEN_DTYPE).contiguous()
+
+    def setup(dev):
+        pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
+        g, _ = prepare_genotypes_device(bed_prefix, device=dev)
+        return (coded_matrix(g, "add", SCREEN_DTYPE) if kind != "DD" else None,
+                coded_matrix(g, "dom", SCREEN_DTYPE) if kind != "AA" else None,
+                pieces.pymat.to(SCREEN_DTYPE).contiguous())
+
+    if mesh is None:
+        a_full, d_full, py = setup(resolve_device(device))
+    else:
+        reps = _replicate(mesh, setup)
+        a_full, d_full, py = ({dev: r[k] for dev, r in reps.items()}
+                              for k in range(3))
+    num_snp = _any_replica(a_full if kind != "DD" else d_full).shape[1]
     logger.info("Screen engine setup (pieces/geno/codings): %.3f s",
                 time.perf_counter() - t0)
     # AA/DD anchors stop at num_snp-2; the plain AD screen anchors over all
@@ -138,14 +187,15 @@ def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
         raise ValueError("snp_lst_0 is out of range!")
     anchors = list(snp_lst_0)
     args = (py, anchors, bins_a, bins_b, eff_cut_table)
+    kw = {"mesh": mesh}
     t0 = time.perf_counter()
     if kind == "AA":
-        res = [_run_screen(a_full, a_full, *args)]
+        res = [_run_screen(a_full, a_full, *args, **kw)]
     elif kind == "DD":
-        res = [_run_screen(d_full, d_full, *args)]
+        res = [_run_screen(d_full, d_full, *args, **kw)]
     else:
-        res = [_run_screen(a_full, d_full, *args),
-               _run_screen(d_full, a_full, *args, flip_output=True)]
+        res = [_run_screen(a_full, d_full, *args, **kw),
+               _run_screen(d_full, a_full, *args, flip_output=True, **kw)]
     idx0, idx1, eff = (np.concatenate(parts) for parts in zip(*res))
     logger.info("Screen sweep(s) incl. assembly: %.3f s, %d hits",
                 time.perf_counter() - t0, len(idx0))
@@ -189,14 +239,15 @@ def _num_snp(bed_prefix):
 
 def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                    snp_lst_0=None, var_app=1.0, p_cut=1.0e-5,
-                   out_file="epi_eff", dm=None, device=None):
+                   out_file="epi_eff", dm=None, device=None, mesh=None):
     chi_cut = chi2_isf(p_cut, 1)
     table = np.full(111, np.sqrt(chi_cut * var_app))
     bins = np.zeros(_num_snp(bed_prefix), dtype=np.int64)
     deno = np.full(111, var_app)
     tmp = out_file + ".temp"
     _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0, table, bins, bins, tmp, dm=dm, device=device)
+                   snp_lst_0, table, bins, bins, tmp, dm=dm, device=device,
+                   mesh=mesh)
     _append_approx_p(tmp, out_file, bins, bins, deno)
     os.remove(tmp)
     return 0
@@ -205,7 +256,7 @@ def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                        snp_lst_0=None, bins_a=None, bins_b=None,
                        freq_deno=None, p_cut=1.0e-5, out_file="epi_maf_eff",
-                       dm=None, device=None):
+                       dm=None, device=None, mesh=None):
     chi_cut = chi2_isf(p_cut, 1)
     num_snp = _num_snp(bed_prefix)
     if bins_a is None:
@@ -218,7 +269,7 @@ def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     tmp = out_file + ".temp"
     _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                    snp_lst_0, table, bins_a, bins_b, tmp, maf=True, dm=dm,
-                   device=device)
+                   device=device, mesh=mesh)
     _append_approx_p(tmp, out_file, bins_a, bins_b, np.asarray(freq_deno))
     os.remove(tmp)
     return 0
@@ -228,53 +279,58 @@ def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiAA_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
                     var_app=1.0, p_cut=1.0e-5, out_file="epiAA_eff",
-                    device=None):
+                    device=None, mesh=None):
     return _remma_epi_eff("AA", pheno_file, bed_prefix, gmat_lst, var_com,
-                          snp_lst_0, var_app, p_cut, out_file, device=device)
+                          snp_lst_0, var_app, p_cut, out_file, device=device,
+                          mesh=mesh)
 
 
 def remma_epiAD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
                     var_app=1.0, p_cut=1.0e-5, out_file="epiAD_eff",
-                    device=None):
+                    device=None, mesh=None):
     return _remma_epi_eff("AD", pheno_file, bed_prefix, gmat_lst, var_com,
-                          snp_lst_0, var_app, p_cut, out_file, device=device)
+                          snp_lst_0, var_app, p_cut, out_file, device=device,
+                          mesh=mesh)
 
 
 def remma_epiDD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
                     var_app=1.0, p_cut=1.0e-5, out_file="epiDD_eff",
-                    device=None):
+                    device=None, mesh=None):
     return _remma_epi_eff("DD", pheno_file, bed_prefix, gmat_lst, var_com,
-                          snp_lst_0, var_app, p_cut, out_file, device=device)
+                          snp_lst_0, var_app, p_cut, out_file, device=device,
+                          mesh=mesh)
 
 
 def remma_epiAA_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
                         snp_lst_0=None, freq=None, freq_deno=None,
-                        p_cut=1.0e-5, out_file="epiAA_maf_eff", device=None):
+                        p_cut=1.0e-5, out_file="epiAA_maf_eff", device=None,
+                        mesh=None):
     """MAF-binned AA screen; `freq` = int(maf*20) bins for both SNPs."""
     return _remma_epi_maf_eff("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                               snp_lst_0, freq, freq, freq_deno, p_cut,
-                              out_file, device=device)
+                              out_file, device=device, mesh=mesh)
 
 
 def remma_epiAD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
                         snp_lst_0=None, freqA=None, freqD=None,
                         freq_deno=None, p_cut=1.0e-5,
-                        out_file="epiAD_maf_eff", device=None):
+                        out_file="epiAD_maf_eff", device=None, mesh=None):
     """Binned AD screen; `freqA` = int(maf*20) bins of the A-coded side,
     `freqD` = int(het_freq*20) bins of the D-coded side."""
     return _remma_epi_maf_eff("AD", pheno_file, bed_prefix, gmat_lst, var_com,
                               snp_lst_0, freqA, freqD, freq_deno, p_cut,
-                              out_file, device=device)
+                              out_file, device=device, mesh=mesh)
 
 
 def remma_epiDD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
                         snp_lst_0=None, freq=None, freq_deno=None,
-                        p_cut=1.0e-5, out_file="epiDD_maf_eff", device=None):
+                        p_cut=1.0e-5, out_file="epiDD_maf_eff", device=None,
+                        mesh=None):
     """Binned DD screen; `freq` = int(het_freq*20) heterozygote-frequency
     bins for both SNPs."""
     return _remma_epi_maf_eff("DD", pheno_file, bed_prefix, gmat_lst, var_com,
                               snp_lst_0, freq, freq, freq_deno, p_cut,
-                              out_file, device=device)
+                              out_file, device=device, mesh=mesh)
 
 
 # approximate pipelines -------------------------------------------------------
@@ -312,26 +368,33 @@ LAST_APPROX_STAGES: dict = {}
 
 
 def _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                 device=None):
+                 device=None, mesh=None):
     """Warm every cross-stage cache (design parse, score pieces, device
-    genotype panel, codings) and wait for the device, so that the stage
-    timers below measure each stage's own work."""
+    genotype panel, codings; on each device of `mesh`) and wait for the
+    devices, so that the stage timers below measure each stage's own
+    work."""
     from gmat_tpu_torch.scan.pairs import _epi_setup
 
-    mat0, _, _, _, _ = _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com,
-                                  kind, device)
-    if mat0.device.type == "cuda":
-        torch.cuda.synchronize(mat0.device)
+    devices = ((resolve_device(device),) if mesh is None
+               else mesh.distinct_devices)
+    for dev in devices:
+        _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                     num_random_pair, out_file, seed, screen, device):
+                     num_random_pair, out_file, seed, screen, device,
+                     mesh=None):
     """prep -> calibrate (the exact test of `num_random_pair` random pairs)
     -> screen(calibration table, approx file) -> exact re-test of the
-    survivors -> merge, each stage timed into `LAST_APPROX_STAGES`."""
+    survivors -> merge, each stage timed into `LAST_APPROX_STAGES`.  With
+    `mesh`, all three device stages run over it (the screen through the
+    `screen` callback)."""
     stages = {}
     t_all = time.perf_counter()
-    _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com, device)
+    _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com, device,
+                 mesh)
     stages["prep"] = time.perf_counter() - t_all
     logger.info("Random calibration: %d pairs", num_random_pair)
     rp = out_file + ".random_pair"
@@ -339,7 +402,8 @@ def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     pair_fn = _pair_fn(kind)
     t0 = time.perf_counter()
     pair_fn(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file=rp,
-            p_cut=1.1, out_file=out_file + ".random", device=device)
+            p_cut=1.1, out_file=out_file + ".random", device=device,
+            mesh=mesh)
     calib = pd.read_csv(out_file + ".random", header=0, sep=r"\s+")
     stages["calibrate"] = time.perf_counter() - t0
     os.remove(rp)
@@ -351,7 +415,7 @@ def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     t0 = time.perf_counter()
     pair_fn(pheno_file, bed_prefix, gmat_lst, var_com,
             snp_pair_file=out_file + ".approx_p", p_cut=1.1,
-            out_file=out_file + ".exact_p", device=device)
+            out_file=out_file + ".exact_p", device=device, mesh=mesh)
     stages["retest"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _merge_approx_exact(out_file + ".approx_p", out_file + ".exact_p", out_file)
@@ -369,16 +433,17 @@ def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 def _remma_epi_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                       p_cut=1.0e-5, num_random_pair=100000,
                       out_file="epi_approx", snp_lst_0=None, seed=0,
-                      device=None):
+                      device=None, mesh=None):
     def screen(calib, approx_file):
         var_median = float(np.median(calib["var"]))
         logger.info("Approximate effect variance (median): %g", var_median)
         _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                        snp_lst_0=snp_lst_0, var_app=var_median, p_cut=p_cut,
-                       out_file=approx_file, device=device)
+                       out_file=approx_file, device=device, mesh=mesh)
 
     return _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                            num_random_pair, out_file, seed, screen, device)
+                            num_random_pair, out_file, seed, screen, device,
+                            mesh)
 
 
 def _bin_denominators(calib, bins_a, bins_b, symmetric, out_file):
@@ -412,7 +477,7 @@ def _bin_denominators(calib, bins_a, bins_b, symmetric, out_file):
 def _remma_epi_maf_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                           p_cut=1.0e-5, num_random_pair=100000,
                           out_file="epi_maf_approx", snp_lst_0=None, seed=0,
-                          device=None):
+                          device=None, mesh=None):
     from gmat_tpu_torch.scan.common import prepare_genotypes
 
     def screen(calib, approx_file):
@@ -437,59 +502,66 @@ def _remma_epi_maf_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                                       out_file + ".freq_denominator")
         _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                            snp_lst_0, bins_a, bins_b, freq_deno, p_cut,
-                           approx_file, device=device)
+                           approx_file, device=device, mesh=mesh)
 
     return _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                            num_random_pair, out_file, seed, screen, device)
+                            num_random_pair, out_file, seed, screen, device,
+                            mesh)
 
 
 def remma_epiAA_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                        p_cut=1.0e-5, num_random_pair=100000,
-                       out_file="epiAA_approx", seed=0, device=None):
+                       out_file="epiAA_approx", seed=0, device=None,
+                       mesh=None):
     """Flagship fast pipeline: calibrate -> screen -> exact re-test -> merge."""
     return _remma_epi_approx("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                              p_cut, num_random_pair, out_file, seed=seed,
-                             device=device)
+                             device=device, mesh=mesh)
 
 
 def remma_epiAD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                        p_cut=1.0e-5, num_random_pair=100000,
-                       out_file="epiAD_approx", seed=0, device=None):
+                       out_file="epiAD_approx", seed=0, device=None,
+                       mesh=None):
     return _remma_epi_approx("AD", pheno_file, bed_prefix, gmat_lst, var_com,
                              p_cut, num_random_pair, out_file, seed=seed,
-                             device=device)
+                             device=device, mesh=mesh)
 
 
 def remma_epiDD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                        p_cut=1.0e-5, num_random_pair=100000,
-                       out_file="epiDD_approx", seed=0, device=None):
+                       out_file="epiDD_approx", seed=0, device=None,
+                       mesh=None):
     return _remma_epi_approx("DD", pheno_file, bed_prefix, gmat_lst, var_com,
                              p_cut, num_random_pair, out_file, seed=seed,
-                             device=device)
+                             device=device, mesh=mesh)
 
 
 def remma_epiAA_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                            p_cut=1.0e-5, num_random_pair=100000,
-                           out_file="epiAA_maf_approx", seed=0, device=None):
+                           out_file="epiAA_maf_approx", seed=0, device=None,
+                           mesh=None):
     return _remma_epi_maf_approx("AA", pheno_file, bed_prefix, gmat_lst,
                                  var_com, p_cut, num_random_pair, out_file,
-                                 seed=seed, device=device)
+                                 seed=seed, device=device, mesh=mesh)
 
 
 def remma_epiAD_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                            p_cut=1.0e-5, num_random_pair=100000,
-                           out_file="epiAD_maf_approx", seed=0, device=None):
+                           out_file="epiAD_maf_approx", seed=0, device=None,
+                           mesh=None):
     return _remma_epi_maf_approx("AD", pheno_file, bed_prefix, gmat_lst,
                                  var_com, p_cut, num_random_pair, out_file,
-                                 seed=seed, device=device)
+                                 seed=seed, device=device, mesh=mesh)
 
 
 def remma_epiDD_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                            p_cut=1.0e-5, num_random_pair=100000,
-                           out_file="epiDD_maf_approx", seed=0, device=None):
+                           out_file="epiDD_maf_approx", seed=0, device=None,
+                           mesh=None):
     return _remma_epi_maf_approx("DD", pheno_file, bed_prefix, gmat_lst,
                                  var_com, p_cut, num_random_pair, out_file,
-                                 seed=seed, device=device)
+                                 seed=seed, device=device, mesh=mesh)
 
 
 # the *_parallel parts ------------------------------------------------------------

@@ -281,7 +281,10 @@ def test_remmax_resumes_from_jax_var(work, jax_remmax):
 
 
 def test_cli_rejects_mesh_and_bench(work):
-    for argv in (["--devices", "2", "agmat", work["prefix"]],
+    """`bench` is no subcommand, and `--devices N` exits as a usage error
+    when fewer than N CUDA devices are visible."""
+    too_many = str(torch.cuda.device_count() + 1)
+    for argv in (["--devices", too_many, "agmat", work["prefix"]],
                  ["bench"]):
         with pytest.raises(SystemExit) as err:
             main(argv)
