@@ -5,10 +5,16 @@
 
 1. requires CUDA and prints the card's name and power limit;
 2. builds the kernels from gmat_tpu_torch/csrc/*.cu (one nvcc per source,
-   all started together);
+   all started together); the build fails the run when the SASS of any of
+   the four screen kernels holds no TF32 tensor-core instruction (HGMMA
+   ... TF32: their product is 3xTF32 on wgmma);
 3. holds the effect-screen kernels against their plain PyTorch versions and
    a float64 oracle at the yeast shape (n=4168, m=28220, ~1e5 hits), a
-   ragged shape, a zero-hit cut and a near-keep-all cut, and times both;
+   ragged shape, a zero-hit cut and a near-keep-all cut, and times both
+   (each `case` line gives the 3xTF32 bound and the float32 one); at the
+   yeast shape it times the count with the earlier CUDA-core FMA product
+   (`gmat_tpu_torch/probe.py`) and with the package's in turns (the
+   `product turns` line);
 4. holds the exact-scan kernel against its plain version for AA, AD and DD
    at a ragged shape with an unsorted anchor subset, with a threshold, a
    zero-hit threshold and keep-all;
@@ -114,8 +120,13 @@ EXACT_BAND = 1e-9  # exact-scan hit sets may differ only within crit·(1 ± band
 EXACT_RTOL = 1e-9  # exact-scan eff/var/chi, kernel vs plain (both float64)
 # peak rates of one H100 SXM (NVIDIA's data sheet, dense): float32 outside
 # the tensor cores, float64 on the tensor cores (34e12 on the CUDA cores),
-# and the HBM3 rate
-FP32_PEAK, FP64_PEAK, HBM_RATE = 67e12, 67e12, 3.35e12
+# TF32 on the tensor cores, and the HBM3 rate
+FP32_PEAK, FP64_PEAK, TF32_PEAK, HBM_RATE = 67e12, 67e12, 495e12, 3.35e12
+# the screen kernels' SASS functions, each of which must hold TF32
+# tensor-core instructions (HGMMA ... TF32)
+SCREEN_KERNELS = ("screen_count_kernel", "screen_extract_kernel",
+                  "screen_count_general_kernel",
+                  "screen_extract_general_kernel")
 MOUSE = ROOT / "tests" / "data"
 MOUSE_M = 1407
 
@@ -310,14 +321,17 @@ def kernel_case(K, name, mat, py, cut, b=None, anchors=None):
     n_a = m if ids is None else len(ids)
     pairs = (m * (m - 1) // 2 if ids is None
              else int((m - 1 - ids.long()).clamp(min=0).sum()))
-    # each input read once: the panel(s), py, the bins and the table
+    # each input read once: the panel(s), py, the bins and the table; the
+    # kernels' product is 3xTF32 (three TF32 products per multiply-add),
+    # its bound beside the float32 one of the earlier CUDA-core product
     in_bytes = 4 * (n * m + n + (0 if b is None else n * n_a)) + (
         0 if isinstance(cut, float) else 8 * m + 4 * 111)
-    count_bound = bound(2.0 * n * pairs, in_bytes + 4 * counts.numel(),
-                        FP32_PEAK)
-    extract_bound = bound(2.0 * n * tile_pairs(tiles, m, K.TILE, ids),
-                          in_bytes + 8 * len(tiles) + 12 * len(keys),
-                          FP32_PEAK)
+    count_flop = 2.0 * n * pairs
+    count_bytes = in_bytes + 4 * counts.numel()
+    extract_flop = 2.0 * n * tile_pairs(tiles, m, K.TILE, ids)
+    extract_bytes = in_bytes + 8 * len(tiles) + 12 * len(keys)
+    count_bound = bound(3 * count_flop, count_bytes, TF32_PEAK)
+    extract_bound = bound(3 * extract_flop, extract_bytes, TF32_PEAK)
     out = {
         "case": name, "n": n, "m": m, "anchors": n_a,
         "cut": cut if isinstance(cut, float) else "table", "hits": len(keys),
@@ -326,8 +340,11 @@ def kernel_case(K, name, mat, py, cut, b=None, anchors=None):
         "count_max_abs_err": count_err, "eff_max_abs_err": eff_err,
         "eff_max_rel_err_f64": rel,
         "count_bound_ms": count_bound[0], "count_bound_by": count_bound[1],
+        "count_fp32_bound_ms": bound(count_flop, count_bytes, FP32_PEAK)[0],
         "extract_bound_ms": extract_bound[0],
         "extract_bound_by": extract_bound[1],
+        "extract_fp32_bound_ms": bound(extract_flop, extract_bytes,
+                                       FP32_PEAK)[0],
         "count_ms": cuda_ms(lambda: K.screen_counts(a, py, cut, m, **kw)),
         "plain_count_ms": cuda_ms(lambda: K.screen_tile_counts_ref(a, py, cut, m, **kw)),
         "extract_ms": cuda_ms(lambda: K.screen_extract(a, py, cut, m, counts, **kw)),
@@ -349,6 +366,37 @@ def flat_case(K, name, n, m, seed, target=None, cut=None):
     if cut is None:
         cut = cut_for_hits(mat, py, target)
     out = kernel_case(K, name, mat, py, cut)
+    del mat, py
+    torch.cuda.empty_cache()
+    return out
+
+
+def product_turns(K, yeast):
+    """The identity count at the yeast case's panel and cut with the
+    earlier CUDA-core FMA product (`probe.py`'s `ffma` library) and with
+    the package's 3xTF32 product, in turns ffma, wgmma, wgmma, ffma; both
+    counts' totals inside the case's f64 bracket."""
+    import torch
+
+    from gmat_tpu_torch.probe import screen_product_turns
+
+    mat, py = panel(*YEAST, seed=1)
+    out_dir = K._BUILD_DIR / "probe"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ms, counts = screen_product_turns(mat, py, yeast["cut"], YEAST[1],
+                                      out_dir)
+    for name, c in counts.items():
+        total = int(c.sum())
+        check(yeast["f64_core"] <= total <= yeast["f64_hull"],
+              f"{name} product: {total} hits outside the f64 bracket "
+              f"[{yeast['f64_core']}, {yeast['f64_hull']}]")
+    check(int(counts["wgmma"].sum()) == yeast["hits"],
+          "the 3xTF32 counts differ from the case's hits")
+    out = {"ffma_ms": ms["ffma"], "wgmma_ms": ms["wgmma"],
+           "ffma_hits": int(counts["ffma"].sum()),
+           "wgmma_hits": int(counts["wgmma"].sum())}
+    print("product turns (yeast count, ffma/wgmma/wgmma/ffma) "
+          + json.dumps(out), flush=True)
     del mat, py
     torch.cuda.empty_cache()
     return out
@@ -2358,6 +2406,15 @@ def main():
           flush=True)
     check(dmma, "exact_scan_kernel's SASS holds no DMMA (FP64 tensor-core) "
           "instruction")
+    hgmma = sass_opcodes(lib, "HGMMA")
+    for name in SCREEN_KERNELS:  # mangled as <length><name>
+        tf32 = {op: count for fn, ops in hgmma.items()
+                if f"{len(name)}{name}" in fn for op, count in ops.items()
+                if "TF32" in op}
+        print(f"{name} SASS TF32 tensor-core instructions: "
+              f"{json.dumps(tf32)}", flush=True)
+        check(tf32, f"{name}'s SASS holds no HGMMA ... TF32 (TF32 "
+              "tensor-core) instruction")
 
     phase_s = {}
     t0 = time.perf_counter()
@@ -2370,6 +2427,7 @@ def main():
     check(cases[0]["hits"] > 5e4, "yeast case: too few hits")
     check(cases[2]["hits"] == 0, "zero-hit case found hits")
     check(cases[3]["hits"] > 1e6, "near-keep-all case: too few hits")
+    turns = product_turns(K, cases[0])
     phase_s["screen_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     general = general_cases(K)
@@ -2377,8 +2435,10 @@ def main():
     phase_s["general_screen_kernels"] = time.perf_counter() - t0
     print("general screen kernels " + json.dumps([
         {k: c[k] for k in ("case", "anchors", "pairs", "hits", "count_ms",
-                           "count_bound_ms", "plain_count_ms", "extract_ms",
-                           "extract_bound_ms", "plain_extract_ms",
+                           "count_bound_ms", "count_fp32_bound_ms",
+                           "plain_count_ms", "extract_ms",
+                           "extract_bound_ms", "extract_fp32_bound_ms",
+                           "plain_extract_ms",
                            "screen_ms")} for c in general]), flush=True)
 
     t0 = time.perf_counter()

@@ -6,10 +6,12 @@ FP64, so the TPU's mixed-precision inverse (`gmat_tpu/core/linalg.py::
 mixed_inv_psd`) has no counterpart here.
 
 The effect screen runs in float32 on a hand-written CUDA kernel whose
-FMA is full float32.  TF32 is switched off for every float32 matrix
-product and convolution in the process, so that a plain float32 product
-(the kernel's PyTorch twin, the oracles in the tests) keeps float32
-precision too.
+product keeps float32's precision on the TF32 tensor cores: each operand
+is split into two TF32 parts and three products are summed in float32
+(3xTF32, `csrc/screen.cu`).  TF32 is switched off for every float32
+matrix product and convolution that torch itself runs in the process, so
+that a plain float32 product (the kernel's PyTorch twin, the oracles in
+the tests) keeps float32 precision too.
 
 Every entry point takes a `device`; `None` means `DEFAULT_DEVICE`, which
 is CUDA.  Nothing picks the CPU on its own: the tests pass

@@ -6,9 +6,11 @@ and `maybe_trace` records a `torch.profiler` trace of whatever runs inside
 it when `GMAT_TPU_TRACE_DIR` is set.
 
 Peak: the default 67 TFLOP/s is the published rate of one NVIDIA H100
-SXM (80 GB HBM3) at its 700 W power limit for the two types whose work is
-logged: float32 on the CUDA cores (the effect screen, kernel K1) and
-float64 on the tensor cores (DMMA, the exact scan, kernel K2).  Set
+SXM (80 GB HBM3) at its 700 W power limit for float64 on the tensor cores
+(DMMA, the exact scan, kernel K2) and for float32 on the CUDA cores.  The
+effect screen (kernel K1) is logged against it too, though its product
+runs on the TF32 tensor cores as three TF32 products, whose own bound is
+495 / 3 = 165 TFLOP/s of float32-grade work.  Set
 `GMAT_TPU_PEAK_TFLOPS` for another card, a lower power limit or a CPU run.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Probes of the FP64 tensor cores and of the exact-scan kernel on the card.
+"""Probes of the tensor cores and of the scan kernels on the card.
 
     python -m gmat_tpu_torch.probe
 
@@ -18,6 +18,16 @@
    results are wrong by design, each without one piece of the work:
    `no_staging` (after the first slices the ring is not refilled) and
    `no_product` (no DMMA).
+3. The screen's count kernel (`csrc/screen.cu::gmat_screen_count`) at the
+   yeast shape of chip_smoke.py (n=4168, m=28220; a seeded panel, the cut
+   at about 1e5 hits): as built (3xTF32 on wgmma); `no_loads` (after the
+   two stages of the prologue no chunk is loaded, split or stored),
+   `no_product` (no wgmma), `no_split` (hi = lo = x, no TF32 rounding)
+   and `no_fence` (no proxy fence behind the stores), all wrong by design;
+   `unbanded`, its blocks column by column instead of in bands of 8 tile
+   columns; and `ffma`, the kernel's earlier float32 FMA product on the
+   CUDA cores (`probe_screen_ffma.cu`, the identity count with the same C
+   interface).
 
 Times are the median of 3 launches after a warm-up (CUDA events).  Prints
 the card's name and power limit, the DMMA opcodes in each shape's SASS, the
@@ -142,6 +152,28 @@ _VARIANTS = {
 }
 
 
+# variants of K1's count kernel, as (pattern, replacement) edits of
+# csrc/screen.cu
+_SCREEN_VARIANTS = {
+    "kernel": [],
+    "no_loads": [("  if (kc + 4 < nk) load_chunk", "  if (false) load_chunk"),
+                 ("  if (kc + 2 < nk) {\n    store_chunk",
+                  "  if (false) {\n    store_chunk")],
+    "no_product": [("  multiply_chunk(part, ring", "  if (kc < 0) multiply_chunk(part, ring")],
+    # hi = lo = x: the split's TF32 roundings and subtraction left out
+    "no_split": [("      hi[e] = tf32_rna(v);\n"
+                  "      lo[e] = tf32_rna(__fsub_rn(v, __uint_as_float(hi[e])));",
+                  "      hi[e] = __float_as_uint(v);\n      lo[e] = hi[e];")],
+    # no proxy fence behind the stores in the loop (its MEMBAR waits for
+    # every load in flight)
+    "no_fence": [("    fence_proxy_async();\n  }\n  if (kc + 4",
+                  "  }\n  if (kc + 4")],
+    # the identity count's blocks column by column, as before the bands
+    "unbanded": [("constexpr int kBand = 8;", "constexpr int kBand = 1;")],
+}
+_FFMA_SCREEN = Path(__file__).resolve().parent / "probe_screen_ffma.cu"
+
+
 def cuda_ms(fn, reps=3):
     """Median device time of fn() in ms, by CUDA events, after one warm-up."""
     fn()
@@ -219,20 +251,25 @@ def shapes(out_dir):
                           "max_abs_err": err, **rates}), flush=True)
 
 
+def _variant(name, text, subs, out_dir, fn):
+    """The library built from `text` with the edits `subs`, its entry point
+    `fn` typed as the package's; prints its registers and spills."""
+    for old, new in subs:
+        if text.count(old) != 1:
+            raise RuntimeError(f"variant {name}: pattern not found once: {old!r}")
+        text = text.replace(old, new)
+    print(f"{name}: {_build(name, text, out_dir)}", flush=True)
+    lib = ctypes.CDLL(str(out_dir / f"lib{name}.so"))
+    getattr(lib, fn).restype = ctypes.c_int
+    getattr(lib, fn).argtypes = getattr(K._library(), fn).argtypes
+    return lib
+
+
 def exact_variants(out_dir):
     src = (K._CSRC / "exact.cu").read_text()
-    libs = {}
-    for name, subs in _VARIANTS.items():
-        text = src
-        for old, new in subs:
-            if text.count(old) != 1:
-                raise RuntimeError(f"variant {name}: pattern not found once: {old!r}")
-            text = text.replace(old, new)
-        print(f"{name}: {_build(f'exact_{name}', text, out_dir)}", flush=True)
-        lib = ctypes.CDLL(str(out_dir / f"libexact_{name}.so"))
-        lib.gmat_exact_scan.restype = ctypes.c_int
-        lib.gmat_exact_scan.argtypes = K._library().gmat_exact_scan.argtypes
-        libs[name] = lib
+    libs = {name: _variant(f"exact_{name}", src, subs, out_dir,
+                           "gmat_exact_scan")
+            for name, subs in _VARIANTS.items()}
     n, m = YEAST
     gen = torch.Generator(device="cuda").manual_seed(0)
     f64 = {"dtype": torch.float64, "device": "cuda"}
@@ -262,6 +299,67 @@ def exact_variants(out_dir):
         print(json.dumps({"variant": name, "ms": cuda_ms(launch)}), flush=True)
 
 
+def ffma_screen_library(out_dir):
+    """The earlier CUDA-core count kernel (`probe_screen_ffma.cu`), built
+    into out_dir, with `gmat_screen_count` typed as the package's."""
+    return _variant("screen_ffma", _FFMA_SCREEN.read_text(), [], out_dir,
+                    "gmat_screen_count")
+
+
+def screen_count_ms(lib, mat, py, cut, m):
+    """(ms, counts) of lib.gmat_screen_count on the identity screen of
+    mat at `cut`: the counts of one launch, the median time of 3."""
+    t = K._n_tiles(m)
+    counts = torch.zeros((t, t), dtype=torch.int32, device=mat.device)
+
+    def launch():
+        counts.zero_()
+        K._raise_on(lib.gmat_screen_count(
+            mat.data_ptr(), py.data_ptr(), mat.shape[0], mat.shape[1], m,
+            float(cut), counts.data_ptr(), t, *K._launch_args(mat)),
+            "gmat_screen_count")
+    launch()
+    first = counts.clone()
+    return cuda_ms(launch), first
+
+
+def screen_product_turns(mat, py, cut, m, out_dir):
+    """The identity count with the CUDA-core product (`ffma`) and with the
+    package's 3xTF32 product (`wgmma`), timed on the same inputs in turns
+    ffma, wgmma, wgmma, ffma: {name: [ms, ms]} and each one's counts.
+    Neither launch counts in `K.LAUNCHES`."""
+    libs = {"ffma": ffma_screen_library(out_dir), "wgmma": K._library()}
+    ms = {"ffma": [], "wgmma": []}
+    counts = {}
+    for name in ("ffma", "wgmma", "wgmma", "ffma"):
+        t, counts[name] = screen_count_ms(libs[name], mat, py, cut, m)
+        ms[name].append(t)
+    return ms, counts
+
+
+def screen_variants(out_dir):
+    n, m = YEAST
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    p = 0.05 + 0.9 * torch.rand(m, generator=gen, device="cuda")
+    geno = ((torch.rand(n, m, generator=gen, device="cuda") < p).float()
+            + (torch.rand(n, m, generator=gen, device="cuda") < p).float())
+    mat = (geno - geno.mean(dim=0)).contiguous()
+    del geno
+    py = (0.1 * torch.randn(n, generator=gen, device="cuda")).contiguous()
+    rows = torch.randperm(m, generator=gen, device="cuda")[:256]
+    s = ((mat[:, rows] * py[:, None]).T @ mat).abs().flatten()
+    cut = float(torch.quantile(s, 1.0 - 1e5 / (m * (m - 1) / 2)))
+    src = (K._CSRC / "screen.cu").read_text()
+    libs = {name: _variant(f"screen_{name}", src, subs, out_dir,
+                           "gmat_screen_count")
+            for name, subs in _SCREEN_VARIANTS.items()}
+    libs["ffma"] = ffma_screen_library(out_dir)
+    for name, lib in libs.items():
+        ms, counts = screen_count_ms(lib, mat, py, cut, m)
+        print(json.dumps({"screen_variant": name, "ms": ms,
+                          "hits": int(counts.sum())}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("probe: needs a CUDA card")
@@ -273,6 +371,7 @@ def main():
     out_dir.mkdir(parents=True, exist_ok=True)
     shapes(out_dir)
     exact_variants(out_dir)
+    screen_variants(out_dir)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,9 @@ _fused_visit`):
 The identity screen (every SNP an anchor of one panel, one flat cut) runs
 the kernels' identity instantiation over the upper-triangle tiles; every
 other screen runs their general instantiation over `screen_worklist`.
+Both run the product on the TF32 tensor cores as three TF32 products
+(3xTF32), which keeps float32's precision: `tf32_split_ref` and
+`tile_product_3xtf32_ref` emulate the scheme for the tests.
 
 The exact scan (`exact_hits`, kernel `gmat_exact_scan`, `csrc/exact.cu`)
 tests every (anchor, partner) pair of an anchor list in float64 —
@@ -58,6 +61,7 @@ from pathlib import Path
 import torch
 
 TILE = 128  # the screen's tile edge; checked against the library at load
+TILE_BAND = 8  # partner tiles per band of a screen launch's tile order
 EXACT_TILE = 128  # partners per exact-scan block; checked likewise
 EXACT_CAPACITY = 1 << 20  # first hit buffer of a thresholded exact scan
 _REF_BLOCK_ELEMS = 1 << 25  # elements of E per step of `exact_hits_ref`
@@ -361,6 +365,34 @@ def screen_extract_ref(mat, py, cut, m, tiles, *, b=None, ids=None):
             torch.cat(out_e))
 
 
+# the screen kernels' precision scheme, emulated for the tests ------------
+
+def tf32_round_ref(x):
+    """float32 x rounded to TF32 (10 explicit mantissa bits) to nearest,
+    ties away from zero: the bits of `cvt.rna.tf32.f32`, the low 13 zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split_ref(x):
+    """(hi, lo) of float32 x as the screen kernels split it: hi = x rounded
+    to TF32, lo = x − hi rounded likewise, so |x − hi − lo| ≤ 2⁻²²·|x|."""
+    hi = tf32_round_ref(x)
+    return hi, tf32_round_ref(x - hi)
+
+
+def tile_product_3xtf32_ref(a, b, py):
+    """S = (a ⊙ py)ᵀ b as the screen kernels form it, emulated: py folded
+    into a in float32, both operands split by `tf32_split_ref`, and
+    S = lo_a·hi_b + hi_a·lo_b + hi_a·hi_b as three float32 products (each
+    product of two TF32 values is exact in float32).  The kernels sum the
+    same products in another order on the tensor cores, so the two agree
+    to float32 rounding, not bit for bit."""
+    a_hi, a_lo = tf32_split_ref(a * py[:, None])
+    b_hi, b_lo = tf32_split_ref(b)
+    return a_lo.T @ b_hi + a_hi.T @ b_lo + a_hi.T @ b_hi
+
+
 def anchor_panel(mat, anchors, m):
     """(panel, ids) of a screen of the anchors `anchors` (SNP ids, columns
     of mat; None for every SNP): mat itself and None when the list is
@@ -418,6 +450,20 @@ def _empty_hits(device, dtype, index_dtype=torch.int32):
 
 # kernel wrappers -------------------------------------------------------------
 
+def banded(tiles):
+    """(anchor tile, partner tile) rows of `tiles` in the order the screen
+    kernels run a list best: in bands of TILE_BAND partner tiles, and in a
+    band anchor tile by anchor tile, so that the blocks in flight at once
+    share a few tiles of each panel in L2 (the identity count orders its
+    own blocks so, in bands of the same width)."""
+    if len(tiles) == 0:
+        return tiles
+    ta, tb = tiles[:, 0].long(), tiles[:, 1].long()
+    n_a, n_b = int(ta.max()) + 1, int(tb.max()) + 1
+    key = ((tb // TILE_BAND) * n_a + ta) * n_b + tb
+    return tiles[torch.argsort(key)].contiguous()
+
+
 def _is_identity(cut, b, ids):
     return not isinstance(cut, CutTable) and b is None and ids is None
 
@@ -458,7 +504,7 @@ def screen_counts(mat, py, cut, m, *, b=None, ids=None):
     else:
         pos_ids = (ids if ids is not None
                    else torch.arange(m, dtype=torch.int32, device=mat.device))
-        work = screen_worklist(pos_ids, m)
+        work = banded(screen_worklist(pos_ids, m))
         if len(work) == 0:  # no anchor has a partner: nothing to launch
             return counts
         rc = _library().gmat_screen_count_general(
@@ -487,6 +533,7 @@ def screen_extract(mat, py, cut, m, counts, *, b=None, ids=None):
     out_j = torch.empty(total, dtype=torch.int32, device=dev)
     out_e = torch.empty(total, dtype=torch.float32, device=dev)
     state = torch.zeros(2, dtype=torch.int32, device=dev)  # cursor, overflow
+    tiles = banded(tiles)
     tail = (tiles.data_ptr(), tiles.shape[0], out_p.data_ptr(),
             out_j.data_ptr(), out_e.data_ptr(), total, state.data_ptr(),
             *_launch_args(mat))

@@ -21,7 +21,8 @@ kernel.
 
 The screen is S = (A ⊙ py)ᵀ B in float32 on the hand-written Hopper kernel
 K1 (`scan/kernels.py::screen_positions`), for every kind, anchor list and cut
-table; its FMA is full float32, so no threshold slack is applied.
+table; its product keeps float32's precision (3xTF32 on the tensor
+cores), so no threshold slack is applied.
 Survivors are re-tested exactly in float64.  With `mesh=` (`dist/`), the
 anchors of each sweep are shared round-robin over the mesh's shards, the
 calibration and the re-test chunks likewise (`scan/pairs.py`).
@@ -48,7 +49,8 @@ logger = logging.getLogger(__name__)
 
 def _screen_slack() -> float:
     """Threshold slack for the screen product's precision: none, since the
-    kernel accumulates in full float32 FMA, like the JAX package on the CPU."""
+    kernel's 3xTF32 product keeps float32's precision, like the JAX package
+    on the CPU."""
     return 0.0
 
 

@@ -2,7 +2,10 @@
 Pallas screen in interpret mode and vs a float64 oracle.
 
 On the CPU the wrappers run their plain PyTorch versions; the cases marked
-`cuda` hold the Hopper kernel against them and skip without a card.  A hit
+`cuda` hold the Hopper kernel against them and skip without a card.  The
+kernels form S as three TF32 products (3xTF32); the CPU tests hold that
+scheme, emulated, to the same bracket, and show one TF32 product leaving
+it.  A hit
 set is held to the float64 oracle's bracket: every pair with |S| above
 cut·(1 + 1e-4) must be found, and every pair found must have |S| above
 cut·(1 - 1e-4); float32 rounding may flip pairs inside the band only.
@@ -178,6 +181,107 @@ def test_general_wrapper_rejects_bad_input(problem):
         K.screen_counts(mat_t, py_t, K.CutTable(bins, bins, table[:110]), m)
 
 
+@pytest.mark.parametrize("ids", [None, [700, 3, 129, 300, 5, 1000]])
+def test_banded_order_is_a_permutation_in_bands(ids):
+    """`banded` reorders a launch's tile list (a work list, or the hot
+    tiles) without losing or adding a tile: partner-tile bands of TILE_BAND
+    ascending, anchor tiles ascending in a band."""
+    m = 1100
+    pos = (torch.arange(m, dtype=torch.int32) if ids is None
+           else torch.tensor(ids, dtype=torch.int32))
+    work = K.screen_worklist(pos, m)
+    got = K.banded(work)
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert sorted(map(tuple, got.tolist())) == sorted(map(tuple, work.tolist()))
+    key = [(tb // K.TILE_BAND, ta, tb) for ta, tb in got.tolist()]
+    assert key == sorted(key) and len(set(key)) == len(key)
+    assert len(K.banded(work[:0])) == 0
+
+
+# the precision scheme of the kernels: 3xTF32, emulated on the CPU ------------
+
+def _operands(case):
+    """(A, B, py, eff64) of the named fixture case as tensors (eff64 numpy):
+    the `_problem` panel twice, or `_general_problem`'s additive and
+    dominance codes."""
+    if case == "problem":
+        a, py, eff64 = _problem(96, 1100, 2026)
+        b = a
+    else:
+        a, b, py, _, _ = _general_problem(50, 301, 0, 351, 0.97, "flat")
+        eff64 = (a.astype(np.float64) * py.astype(np.float64)[:, None]).T @ b
+    return torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(py), eff64
+
+
+def test_tf32_round_ties_away_from_zero():
+    """`tf32_round_ref` rounds as `cvt.rna.tf32.f32`: to nearest, a tie
+    away from zero, never by truncation."""
+    ulp = 2.0 ** -10  # TF32 spacing in [1, 2)
+    x = torch.tensor([1 + ulp / 2, -(1 + ulp / 2), 1 + ulp / 4, 1 + 0.75 * ulp,
+                      1 + 1.5 * ulp, 0.0, -0.0, 3.0], dtype=torch.float32)
+    want = [1 + ulp, -(1 + ulp), 1.0, 1 + ulp, 1 + 2 * ulp, 0.0, -0.0, 3.0]
+    assert K.tf32_round_ref(x).tolist() == want
+
+
+@pytest.mark.parametrize("case", ["problem", "general_problem"])
+@pytest.mark.parametrize("operand", [0, 1])
+def test_tf32_split_parts(case, operand):
+    """hi and lo are TF32 values (their low 13 mantissa bits zero) and
+    |x − hi − lo| ≤ 2⁻²²·|x|, for A ⊙ py and for B."""
+    a, b, py, _ = _operands(case)
+    x = a * py[:, None] if operand == 0 else b
+    hi, lo = K.tf32_split_ref(x)
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    x64 = x.double()
+    resid = (x64 - hi.double() - lo.double()).abs()
+    assert bool(torch.all(resid <= 2.0 ** -22 * x64.abs()))
+    assert float((x64 - hi.double()).abs().max()) > 0  # lo carries bits
+
+
+@pytest.mark.parametrize("case,q", [("problem", 0.999), ("problem", 0.99),
+                                    ("general_problem", 0.99)])
+def test_3xtf32_screen_in_bracket(case, q):
+    """The emulated 3xTF32 product keeps the f64 hit bracket and eff within
+    rtol 1e-4, like the float32 product it replaces."""
+    a, b, py, eff64 = _operands(case)
+    s = K.tile_product_3xtf32_ref(a, b, py).numpy()
+    cut = _quantile_cut(eff64, q)
+    m = s.shape[1]
+    upper = np.arange(m)[None, :] > np.arange(s.shape[0])[:, None]
+    pairs = np.nonzero((np.abs(s) > cut) & upper)
+    _assert_bracket(pairs, eff64, cut)
+    assert len(pairs[0]) > 100
+    np.testing.assert_allclose(s[pairs], eff64[pairs], rtol=1e-4)
+
+
+def test_one_pass_tf32_leaves_bracket():
+    """Why three products: at a cut among many scores (the median |S| of a
+    yeast-like panel) one TF32 product hi·hi misses pairs above the f64
+    bracket or keeps pairs below it, and its eff is off by more than 1e-4;
+    the 3xTF32 product on the same inputs stays inside."""
+    rng = np.random.default_rng(2026)
+    n, m = 1000, 400
+    geno = rng.binomial(2, rng.uniform(0.05, 0.95, m), size=(n, m))
+    mat = (geno - geno.mean(0)).astype(np.float32)
+    py = (rng.standard_normal(n) * 0.1).astype(np.float32)
+    eff64 = (mat.astype(np.float64) * py.astype(np.float64)[:, None]).T \
+        @ mat.astype(np.float64)
+    cut = _quantile_cut(eff64, 0.5)
+    a, p = torch.as_tensor(mat), torch.as_tensor(py)
+    hi_a, _ = K.tf32_split_ref(a * p[:, None])
+    hi_b, _ = K.tf32_split_ref(a)
+    upper = np.arange(m)[None, :] > np.arange(m)[:, None]
+    core, hull = _oracle(eff64, cut, BAND), _oracle(eff64, cut, -BAND)
+    s1 = (hi_a.T @ hi_b).numpy()
+    one = set(zip(*(x.tolist() for x in np.nonzero((np.abs(s1) > cut) & upper))))
+    assert not core <= one <= hull
+    assert np.max(np.abs(s1 - eff64)[upper] / np.abs(eff64)[upper]
+                  * (np.abs(eff64)[upper] > cut / 2)) > 1e-4
+    s3 = K.tile_product_3xtf32_ref(a, a, p).numpy()
+    _assert_bracket(np.nonzero((np.abs(s3) > cut) & upper), eff64, cut)
+
+
 # the Hopper kernel: needs the card ------------------------------------------
 
 @pytest.fixture
@@ -210,6 +314,69 @@ def test_kernel_matches_plain_version(cuda, n, m, q):
                                rtol=1e-4)
     with pytest.raises(TypeError):
         K.screen_counts(mat64, py64, cut, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,q", [(33, 517, 0.99), (97, 1001, 0.99),
+                                   (4168, 600, 0.99), (4168, 256, 0.99),
+                                   (1304, 1000, 0.1)])
+def test_kernel_chunk_and_width_edges(cuda, n, m, q):
+    """n not a multiple of the kernels' 32-deep k-chunk (33, 97, 4168), a
+    ragged and a tile-exact m, and a near keep-all cut (scores that cancel
+    to a small |S|): counts in the f64 bracket, as many hits as the counts,
+    hits in the bracket, eff within 1e-4 of f64 and of the emulated 3xTF32
+    product, one launch of each kernel."""
+    mat, py, eff64 = _problem(n, m, n + m)
+    cut = _quantile_cut(eff64, q)
+    mat_d, py_d = torch.as_tensor(mat, device=cuda), torch.as_tensor(py, device=cuda)
+    mat64, py64 = mat_d.double(), py_d.double()
+    before = dict(K.LAUNCHES)
+    counts = K.screen_counts(mat_d, py_d, cut, m)
+    p, j, e = K.screen_extract(mat_d, py_d, cut, m, counts)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["screen_count"] == before["screen_count"] + 1
+    assert K.LAUNCHES["screen_extract"] == before["screen_extract"] + 1
+    core = K.screen_tile_counts_ref(mat64, py64, cut * (1 + BAND), m)
+    hull = K.screen_tile_counts_ref(mat64, py64, cut * (1 - BAND), m)
+    assert bool(torch.all(core <= counts)) and bool(torch.all(counts <= hull))
+    assert int(counts.sum()) == len(p) > 0
+    p, j, e = p.cpu().numpy(), j.cpu().numpy(), e.cpu().numpy()
+    _assert_bracket((p, j), eff64, cut)
+    np.testing.assert_allclose(e, eff64[p, j], rtol=1e-4)
+    emulated = K.tile_product_3xtf32_ref(mat_d, mat_d, py_d).cpu().numpy()
+    np.testing.assert_allclose(e, emulated[p, j], rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 5])
+def test_identity_and_general_eff_bit_equal(cuda, shift):
+    """A pair's eff has the same bits from the identity kernels and from
+    the general kernels over a gathered anchor panel whose position p
+    holds anchor p + shift (shift 0: anchors = arange(m), every pair at
+    its identity tile position; shift 5: every pair 5 rows up its tile, or
+    in the tile before): what the mesh's byte-equal files rest on."""
+    n, m = 97, 1001
+    mat, py, eff64 = _problem(n, m, 11)
+    cut = _quantile_cut(eff64, 0.99)
+    mat_d, py_d = torch.as_tensor(mat, device=cuda), torch.as_tensor(py, device=cuda)
+    i, j, e = K.screen_positions(mat_d, py_d, cut, m)
+    if shift == 0:  # anchor_panel would hand arange(m) to the identity path
+        pa, ids = mat_d, torch.arange(m, dtype=torch.int32, device=cuda)
+    else:
+        pa, ids = K.anchor_panel(mat_d, torch.arange(shift, m, device=cuda), m)
+    before = dict(K.LAUNCHES)
+    counts = K.screen_counts(pa, py_d, cut, m, b=mat_d, ids=ids)
+    p, gj, ge = K.screen_extract(pa, py_d, cut, m, counts, b=mat_d, ids=ids)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["screen_count"] == before["screen_count"] + 1
+    assert K.LAUNCHES["screen_extract"] == before["screen_extract"] + 1
+    gi = ids.long()[p.long()]
+    order = torch.argsort(gi * m + gj.long())
+    keep = i >= shift
+    assert int(keep.sum()) > 100
+    assert torch.equal(gi[order], i[keep])
+    assert torch.equal(gj.long()[order], j[keep])
+    assert torch.equal(ge[order].view(torch.int32), e[keep].view(torch.int32))
 
 
 # the general screen: anchor subsets, a second panel, cut tables --------------
