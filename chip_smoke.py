@@ -90,7 +90,18 @@
    K1/K2 launches one per shard with work; (c) a 2-process world on the
    card, this script run twice as `--mesh-worker` and joined by
    `initialize_multihost(..., backend="gloo")`: the sharded GRM and
-   remma_epiAA_eff(mesh=) against single runs (the `mesh` line).
+   remma_epiAA_eff(mesh=) against single runs (the `mesh` line);
+15. the headline benchmark (`bench_phase`) at bench.py's sizes through
+   `gmat-tpu-torch bench` in this process: its one JSON line (printed
+   with a `bench ` prefix) of bench.py's keys, none null; K1 launched in
+   the production, yeast and big-panel screens and K2 in the exact scan;
+   at the production (1304 x 262,144) and big-panel (1304 x 2^20, a 5.5 GB
+   panel) shapes every hit's eff within 1e-4·cut of its float64 value, the
+   hit set inside the float64 bracket and equal to the plain version's
+   outside it; K2 at the bench's exact inputs against its plain version
+   pair by pair, at the bench's threshold and keeping every pair; K1's
+   count and extract timed at both screen shapes and K2 at the exact
+   shape, with their bounds (the `bench kernels` line).
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit, and the one before that lists each kernel
@@ -2378,24 +2389,186 @@ def mesh_phase(K, ctx):
     return record
 
 
+BENCH_EXTRA = (  # bench.py's `extra` keys, in its order
+    "screen_hits", "screen_gemm_ceiling_pairs_per_s",
+    "yeast_screen_pairs_per_s", "yeast_screen_hits",
+    "exact_scan_pairs_per_s", "exact_scan_tflops", "reml_mixed_iter_s",
+    "reml_cpu_f64_iter_s", "reml_mixed_speedup", "bigpanel_pairs_per_s",
+    "bigpanel_hits", "bigpanel_peak_hbm_gib", "longwas_fixed_snps_per_s",
+    "longwas_trans_snps_per_s", "yeast_approx_end_to_end_s",
+    "yeast_approx_rows", "yeast_approx_stages", "yeast_approx_warm_s")
+
+
+def screen_kernel_ms(K, mat, py, cut, reps):
+    """The identity screen's count and extract kernels on `mat` at `cut`,
+    timed by CUDA events (the median of `reps` calls after a warm-up; for
+    reps=1 the first call's time), with their 3xTF32 bounds (kernel_case's
+    counts: the panel and py read once, the grid and the hits written
+    once)."""
+    import torch
+
+    from gmat_tpu_torch.probe import cuda_ms
+
+    n, m = mat.shape
+    counts, count_ms = timed(lambda: K.screen_counts(mat, py, cut, m))
+    _, extract_ms = timed(lambda: K.screen_extract(mat, py, cut, m, counts))
+    if reps > 1:
+        count_ms = cuda_ms(lambda: K.screen_counts(mat, py, cut, m), reps)
+        extract_ms = cuda_ms(lambda: K.screen_extract(mat, py, cut, m,
+                                                      counts), reps)
+    tiles = torch.nonzero(counts).to(torch.int32)
+    hits = int(counts.sum())
+    in_bytes = 4 * (n * m + n)
+    count = bound(3 * 2.0 * n * (m * (m - 1) // 2),
+                  in_bytes + 4 * counts.numel(), TF32_PEAK)
+    extract = bound(3 * 2.0 * n * tile_pairs(tiles, m, K.TILE),
+                    in_bytes + 8 * len(tiles) + 12 * hits, TF32_PEAK)
+    return {"n": n, "m": m, "hits": hits, "hot_tiles": len(tiles),
+            "count_ms": count_ms, "count_bound_ms": count[0],
+            "count_bound_by": count[1], "extract_ms": extract_ms,
+            "extract_bound_ms": extract[0], "extract_bound_by": extract[1]}
+
+
+def screen_checks(K, name, mat, py, hits, reps):
+    """A screen's hits from the bench's run, `hits` = {i, j, eff, cut} host
+    arrays, against the card on the same panel: the hit set inside the
+    float64 bracket cut·(1 ± BAND) and equal to the plain float32 version's
+    outside it, and each eff within BAND·cut of its float64 value (one
+    float64 pass of the plain version, whose hull holds every hit).
+    Returns the kernels' times at this shape (`screen_kernel_ms`) and the
+    plain version's."""
+    import numpy as np
+    import torch
+
+    m, cut = mat.shape[1], hits["cut"]
+    block = 1 << 28  # scores of one anchor-row block of the plain version
+
+    def keys(a, b):
+        return (a.long() * m + b.long()).cpu().numpy()
+
+    (pi, pj, _), plain_ms = timed(
+        lambda: K.screen_hits_ref(mat, py, cut, m, block))
+    plain = keys(pi, pj)
+    del pi, pj
+    hi, hj, he = K.screen_hits_ref(mat.double(), py.double(),
+                                   cut * (1 - BAND), m, block)
+    hull, he = keys(hi, hj), he.cpu().numpy()
+    del hi, hj
+    torch.cuda.empty_cache()
+    core = hull[np.abs(he) > cut * (1 + BAND)]
+    got = np.asarray(hits["i"], dtype=np.int64) * m + hits["j"]
+    check(np.isin(got, hull).all() and np.isin(core, got).all(),
+          f"{name} screen: hits outside the float64 bracket")
+    order = np.argsort(hull)
+    f64 = he[order[np.searchsorted(hull, got, sorter=order)]]
+    eff_err = float(np.abs(hits["eff"] - f64).max()) if len(got) else 0.0
+    check(eff_err <= BAND * cut, f"{name} screen: eff off float64 by "
+          f"{eff_err:.3g} > {BAND} x cut {cut:.4g}")
+    bracket = np.setdiff1d(hull, core)
+    outside = (np.setdiff1d(got, bracket), np.setdiff1d(plain, bracket))
+    check(np.array_equal(*outside), f"{name} screen: hits differ from the "
+          "plain version's outside the bracket")
+    out = screen_kernel_ms(K, mat, py, cut, reps)
+    out.update(plain_screen_ms=plain_ms, eff_max_abs_err=eff_err,
+               plain_hits=len(plain), f64_core=len(core), f64_hull=len(hull))
+    return out
+
+
+def bench_phase(K):
+    """The headline benchmark at bench.py's sizes through `gmat-tpu-torch
+    bench`, in this process: one JSON line of bench.py's shape, every key
+    set; K1 launched in the three screen sections and K2 in the exact
+    scan; the production and big-panel hits against float64 and the plain
+    version (`screen_checks`), with the screen kernels timed at both shapes
+    (median of 3 at the production shape, one call each at the big panel);
+    the exact-scan kernel at the bench's exact inputs timed
+    (`exact_timing`) and held pair by pair against its plain version at
+    the bench's threshold and keeping every pair.  Returns the bench's line
+    and the kernels' record."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from gmat_tpu_torch import bench
+    from gmat_tpu_torch.cli import main as cli_main
+
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["bench"])
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    lines = out.getvalue().strip().splitlines()
+    check(rc == 0 and len(lines) == 1,
+          f"gmat-tpu-torch bench: rc {rc}, {len(lines)} lines")
+    print(f"bench {lines[0]}", flush=True)
+    line = json.loads(lines[0])
+    check(set(line) == {"metric", "value", "unit", "vs_baseline", "extra"}
+          and list(line["extra"]) == list(BENCH_EXTRA),
+          f"bench line keys: {sorted(line)}, {list(line['extra'])}")
+    nulls = [k for k, v in {**line, **line["extra"]}.items() if v is None]
+    check(not nulls, f"bench line has nulls: {nulls}")
+    check(line["extra"]["screen_hits"] > 0, "production screen: no hits")
+    sections = bench.LAST_RUN["sections"]
+    for name in ("production_screen", "yeast_screen", "bigpanel"):
+        got = sections[name]["launches"]
+        check(got["screen_count"] > 0 and got["screen_extract"] > 0,
+              f"bench {name}: the screen kernels did not launch: {got}")
+    check(sections["exact_scan"]["launches"]["exact_scan"] > 0,
+          "bench exact_scan: the exact-scan kernel did not launch")
+    record = {"wall_s": wall, "launches": launches,
+              "sections": {k: {"s": v["s"], "launches": v["launches"]}
+                           for k, v in sections.items()}}
+    rng = np.random.default_rng(0)  # bench.main's first draws
+    mat = torch.as_tensor(bench._panel(rng, bench.N_ID, bench.N_SNP),
+                          device="cuda")
+    py = torch.as_tensor((rng.standard_normal(bench.N_ID) * 0.1)
+                         .astype(np.float32), device="cuda")
+    record["production"] = screen_checks(
+        K, "production", mat, py, bench.LAST_RUN["production"], reps=3)
+    del mat, py
+    torch.cuda.empty_cache()
+    mat, py, _ = bench.bigpanel_inputs(torch.device("cuda"),
+                                       bench.BIGPANEL_LOG2, bench.N_ID)
+    record["bigpanel"] = screen_checks(
+        K, "big panel", mat, py, bench.LAST_RUN["bigpanel"], reps=1)
+    del mat, py
+    torch.cuda.empty_cache()
+    rng.bit_generator.state = sections["exact_scan"]["rng_state"]
+    mat, py, pvp = bench.exact_inputs(rng, *bench.EXACT, "cuda")
+    anchors = np.arange(bench.EXACT[1] - 1)
+    got, want, exact = exact_timing(K, mat, pvp, py, anchors, 50.0, False)
+    exact_compare("bench exact shape", got, want, 50.0, bench.EXACT[1])
+    # every pair's eff, var and chi at the bench's inputs (keep-all)
+    args = (mat, mat, py, pvp, torch.as_tensor(anchors, device="cuda"),
+            -1.0, "tri", False)
+    common, exact["keep_all_max_abs_err"] = exact_compare(
+        "bench exact shape, keep-all", K.exact_hits(*args),
+        K.exact_hits_ref(*args), -1.0, bench.EXACT[1])
+    check(common == exact["pairs"], f"bench exact shape, keep-all: "
+          f"{common} rows of {exact['pairs']} pairs")
+    record["exact"] = exact
+    return line, record
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
-    gpu_line = smi.stdout.strip().splitlines()[0]
-    print(gpu_line, flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
     sys.path.insert(0, str(ROOT))
+    from gmat_tpu_torch.bench import card_line
     from gmat_tpu_torch.probe import sass_opcodes
     from gmat_tpu_torch.scan import kernels as K
 
+    gpu_line = card_line(torch.device("cuda", 0))
+    print(gpu_line, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
     lib = K.build_library()
     print(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2482,6 +2655,9 @@ def main():
         t0 = time.perf_counter()
         mesh_record = mesh_phase(K, ctx)
         phase_s["mesh"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench_line, bench_record = bench_phase(K)
+    phase_s["bench"] = time.perf_counter() - t0
     times["remma_epiAA_parallel"] = part["wall_s"]
     times.update({k: v["wall_s"] for k, v in family_stages.items()})
     print(f"screen-family launches {json.dumps(family_launches)}", flush=True)
@@ -2506,6 +2682,9 @@ def main():
     print(f"periphery step times (s) on {gpu_line}: "
           f"{json.dumps(peri_times)}", flush=True)
     print(f"mesh on {gpu_line}: {json.dumps(mesh_record)}", flush=True)
+    print(f"bench on {gpu_line}: {json.dumps(bench_line)}", flush=True)
+    print(f"bench kernels on {gpu_line}: {json.dumps(bench_record)}",
+          flush=True)
     print(f"phase times (s): {json.dumps(phase_s)}", flush=True)
 
     yeast = cases[0]

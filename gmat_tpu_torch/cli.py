@@ -9,14 +9,17 @@
     gmat-tpu-torch annotate epiAA plink --p-cut 1e-5
     gmat-tpu-torch remmax pheno plink --out remmax
     gmat-tpu-torch longwas-balance-varcom data.txt --id ID --tpoints 1,2,...
+    gmat-tpu-torch bench
 
 (also `python -m gmat_tpu_torch.cli ...`).  The global `--device` (default
 `cuda`) goes to every entry point; `--device cpu` runs the plain PyTorch
 versions of the kernels.  The global `--devices N` shards the GRM, the
 exhaustive scans and the approx pipelines over a mesh of N devices of
 that type (`dist/`): N CUDA devices (0: every visible one), or N virtual
-shards of the CPU.  `gmat_tpu`'s `bench` subcommand is not part of this
-interface.
+shards of the CPU.  `bench` runs the headline benchmark
+(`gmat_tpu_torch/bench.py`, one JSON line) on `--device`; like
+`gmat_tpu`'s, it takes no mesh, so `--devices` is checked and then
+ignored.
 """
 from __future__ import annotations
 
@@ -157,6 +160,8 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-resume", action="store_true")
 
+    sub.add_parser("bench", help="run the headline benchmark")
+
     args = parser.parse_args(argv)
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
@@ -256,6 +261,10 @@ def main(argv=None):
                model=args.model, scan=args.scan, p_cut=args.p_cut,
                num_random_pair=args.num_random_pair, dis=args.dis,
                seed=args.seed, resume=not args.no_resume, device=dev)
+    elif args.cmd == "bench":
+        from gmat_tpu_torch import bench
+
+        bench.main(device=dev)
     return 0
 
 

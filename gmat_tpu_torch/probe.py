@@ -363,10 +363,9 @@ def screen_variants(out_dir):
 def main():
     if not torch.cuda.is_available():
         sys.exit("probe: needs a CUDA card")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True)
-    print(smi.stdout.strip(), flush=True)
+    from gmat_tpu_torch.bench import card_line
+
+    print(card_line(torch.device("cuda", 0)), flush=True)
     out_dir = K._BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     shapes(out_dir)

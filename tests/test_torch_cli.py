@@ -281,20 +281,33 @@ def test_remmax_resumes_from_jax_var(work, jax_remmax):
 
 
 def test_cli_rejects_mesh_and_bench(work):
-    """`bench` is no subcommand, and `--devices N` exits as a usage error
-    when fewer than N CUDA devices are visible."""
+    """`--devices N` exits as a usage error when fewer than N CUDA devices
+    are visible, and `bench` takes no argument of its own (bench.py's
+    `--warm` is `python -m gmat_tpu_torch.bench --warm`)."""
     too_many = str(torch.cuda.device_count() + 1)
     for argv in (["--devices", too_many, "agmat", work["prefix"]],
-                 ["bench"]):
+                 ["bench", "--warm"]):
         with pytest.raises(SystemExit) as err:
             main(argv)
         assert err.value.code == 2
 
 
+def test_cli_bench_runs_bench_main(monkeypatch):
+    """`bench` calls gmat_tpu_torch.bench.main with the global --device,
+    and with --devices (checked, then ignored: the bench takes no mesh)."""
+    from gmat_tpu_torch import bench
+
+    calls = []
+    monkeypatch.setattr(bench, "main", lambda **kw: calls.append(kw))
+    assert main(["--device", "cpu", "bench"]) == 0
+    assert main(["--device", "cpu", "--devices", "2", "bench"]) == 0
+    assert calls == [{"device": "cpu"}, {"device": "cpu"}]
+
+
 def test_cli_and_array_api_import_no_jax():
     code = ("import sys, gmat_tpu_torch.cli, gmat_tpu_torch.scan.array_api, "
-            "gmat_tpu_torch.pipeline.remmax; "
-            "bad = [m for m in sys.modules if m == 'jax' or "
+            "gmat_tpu_torch.pipeline.remmax, gmat_tpu_torch.bench; "
+            "bad = [m for m in sys.modules if m in ('jax', 'bench') or "
             "m.startswith(('jax.', 'gmat_tpu.')) or m == 'gmat_tpu']; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
