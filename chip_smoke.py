@@ -101,7 +101,24 @@
    outside it; K2 at the bench's exact inputs against its plain version
    pair by pair, at the bench's threshold and keeping every pair; K1's
    count and extract timed at both screen shapes and K2 at the exact
-   shape, with their bounds (the `bench kernels` line).
+   shape, with their bounds (the `bench kernels` line);
+16. the entry points that only CPU tests held before (`coverage_phase`),
+   each call with its own launch counts and wall time: (a) the whole AA
+   triangle of the yeast set through remma_epiAA (28,219 anchors,
+   398,170,090 pairs; K2 once per anchor run; sorted rows with p_val below
+   1e-5, the planted pairs, part 1's rows equal to the exhaustive part's
+   lines, the approx table's pairs past the threshold present at
+   EXACT_RTOL, the middle and last anchor runs against the plain version;
+   the `epiAA whole-triangle` line gives its wall, pairs/s, hits and the
+   approx pipeline's recall of it); (b) remma_epiDD_parallel([100, 1])
+   byte-equal to remma_epiDD over its anchors, 16 of them against the
+   plain version; (c) remma_epi{AA,AD,DD}_maf_eff_parallel([100, 1]), each
+   part's lines the full table's lines of its anchors; (d)
+   uvlmm_gwas_epiAA on the mouse set, against tests/golden/
+   uvlmm_extras.npz and 16 direct GLS fits; (e) the legacy
+   remma_epi{AA,AD,DD}_select_cpu on 32 x 2,000 seeded pairs against
+   remma_epi*_pair at EXACT_RTOL; (f) simu_epistasis_freq against numpy
+   (rtol 1e-10) (the `coverage` lines).
 
 The last line is {"ok": true, "device": {...}}; the line before it names
 the card and its power limit, and the one before that lists each kernel
@@ -954,11 +971,7 @@ def exact_slice(K, ctx):
     print(f"exhaustive-slice launches {json.dumps(launches)}", flush=True)
     check(launches["exact_scan"] > 0,
           "remma_epiAA_parallel never launched the exact-scan kernel")
-    with open(out + ".1") as f:
-        head = f.readline().split()
-    check(head == ["snp_0", "snp_1", "eff", "chi", "p_val"],
-          f"epiAA_parallel header {head}")
-    tab = np.loadtxt(out + ".1", skiprows=1, ndmin=2).reshape(-1, 5)
+    tab = scan_table("epiAA_parallel", out + ".1")
 
     anchors = balanced_anchor_split(m, 100, 1)
     check(len(anchors) == 301, f"{len(anchors)} anchors in part 1 of 100")
@@ -1212,6 +1225,16 @@ def run_step(times, name, fn, logger=None):
         "iterations": log.rounds, "s": dt,
         "s_per_iteration_setup_included": dt / max(log.rounds, 1),
         "status": log.status}
+    return out
+
+
+def counted_step(K, times, launches, name, fn, logger=None):
+    """`run_step` with the kernel launch counts set to 0 just before fn()
+    and read into launches[name] just after."""
+    for key in K.LAUNCHES:
+        K.LAUNCHES[key] = 0
+    out = run_step(times, name, fn, logger)
+    launches[name] = dict(K.LAUNCHES)
     return out
 
 
@@ -1757,9 +1780,13 @@ def seeded_effects(workdir, m, rng, k=20):
     return paths
 
 
-def simulate_numpy(prefix, paths, ratio, mean, res_var, seed):
+def simulate_numpy(prefix, paths, ratio, mean, res_var, seed,
+                   freq_based=False):
     """`simu_epistasis` recomputed in numpy float64 from the decoded
-    `.bed`: (normalised effect tables, residuals, phenotype)."""
+    `.bed`: (normalised effect tables, residuals, phenotype).  With
+    `freq_based`, `simu_epistasis_freq`: the A and D components are scaled
+    by their theoretical variances, 2p(1-p)·e² and
+    2p(1-p)(1 - 2p(1-p))·e², p the SNP's allele frequency."""
     import numpy as np
 
     from gmat_tpu_torch import read_plink
@@ -1782,13 +1809,39 @@ def simulate_numpy(prefix, paths, ratio, mean, res_var, seed):
         val = tab[:, -1][None, :]
         for k, kind in enumerate(kinds):
             val = code(kind, tab[:, k].astype(np.int64)) * val
-        scale = np.sqrt(np.sum(np.var(val, axis=0))
-                        / (target / ratio[-1] * res_var))
+        if freq_based and len(kinds) == 1:
+            p = freq[tab[:, 0].astype(np.int64)]
+            het = 2 * p * (1 - p)
+            comp = (het if kinds == "a" else het * (1 - het)) * tab[:, -1] ** 2
+        else:
+            comp = np.var(val, axis=0)
+        scale = np.sqrt(np.sum(comp) / (target / ratio[-1] * res_var))
         tab[:, -1] /= scale
         tables.append(tab)
         pheno += np.sum(val / scale, axis=1)
     res = np.random.default_rng(seed).normal(0, np.sqrt(res_var), n)
     return tables, res, pheno + res
+
+
+def simulation_checks(name, paths, sim, want, n):
+    """The files of a simulator call (`<path>.norm`, `<sim>.res`,
+    `<sim>.pheno`) against `simulate_numpy`'s `want` at rtol 1e-10."""
+    import numpy as np
+    import pandas as pd
+
+    tables, res_vec, ph = want
+    for path, tab in zip(paths, tables):
+        got_tab = np.loadtxt(path + ".norm", ndmin=2)
+        check(np.array_equal(got_tab[:, :-1], tab[:, :-1]),
+              f"{name}: {path}.norm indexes")
+        np.testing.assert_allclose(got_tab[:, -1], tab[:, -1], rtol=1e-10,
+                                   err_msg=f"{name} {path}.norm")
+    np.testing.assert_array_equal(np.loadtxt(sim + ".res"), res_vec)
+    got_ph = pd.read_csv(sim + ".pheno", sep=" ", header=None)
+    check(got_ph.shape == (n, 4) and bool(np.all(got_ph[2] == 1)),
+          f"{name}: .pheno shape")
+    np.testing.assert_allclose(got_ph[3].to_numpy(), ph, rtol=1e-10,
+                               err_msg=f"{name} phenotype vs numpy")
 
 
 def seeded_pedigree(path, n, rng):
@@ -1894,12 +1947,7 @@ def periphery_phase(K, ctx):
     rng = np.random.default_rng(SEED + 7)
     times, launches = {}, {}
 
-    def step(name, fn, logger=None):
-        for key in K.LAUNCHES:
-            K.LAUNCHES[key] = 0
-        out = run_step(times, name, fn, logger)
-        launches[name] = dict(K.LAUNCHES)
-        return out
+    step = partial(counted_step, K, times, launches)
 
     def screened(name, sweeps):
         check(launches[name]["screen_count"] == sweeps
@@ -2069,20 +2117,8 @@ def periphery_phase(K, ctx):
     sim = str(wd / "sim")
     step("simu_epistasis", lambda: G.simu_epistasis(
         prefix, *paths, out_file=sim, seed=SEED))
-    tables, res_vec, ph = simulate_numpy(prefix, paths, ratio, mean, res_var,
-                                         SEED)
-    for path, tab in zip(paths, tables):
-        got_tab = np.loadtxt(path + ".norm", ndmin=2)
-        check(np.array_equal(got_tab[:, :-1], tab[:, :-1]),
-              f"simu_epistasis: {path}.norm indexes")
-        np.testing.assert_allclose(got_tab[:, -1], tab[:, -1], rtol=1e-10,
-                                   err_msg=f"simu_epistasis {path}.norm")
-    np.testing.assert_array_equal(np.loadtxt(sim + ".res"), res_vec)
-    got_ph = pd.read_csv(sim + ".pheno", sep=" ", header=None)
-    check(got_ph.shape == (n, 4) and bool(np.all(got_ph[2] == 1)),
-          "simu_epistasis: .pheno shape")
-    np.testing.assert_allclose(got_ph[3].to_numpy(), ph, rtol=1e-10,
-                               err_msg="simu_epistasis phenotype vs numpy")
+    simulation_checks("simu_epistasis", paths, sim, simulate_numpy(
+        prefix, paths, ratio, mean, res_var, SEED), n)
 
     # 8. the pedigree tools
     ped = step("pedigree", lambda: pedigree_checks(wd, rng))
@@ -2098,6 +2134,13 @@ def periphery_phase(K, ctx):
 
 
 MESH_WORKERS = 2  # processes of the gloo world in mesh_phase (c)
+
+
+def same_bytes(name, path, want):
+    """Fails unless the file `path` holds rows and the bytes of `want`."""
+    got = Path(path).read_bytes()
+    check(got.count(b"\n") > 1 and got == Path(want).read_bytes(),
+          f"{name}: {path} differs from {want}")
 
 
 def mesh_calls(K, ctx, mesh, single):
@@ -2133,11 +2176,6 @@ def mesh_calls(K, ctx, mesh, single):
                      "launches": dict(K.LAUNCHES)}
         return res
 
-    def same_bytes(name, path, want):
-        got = Path(path).read_bytes()
-        check(got.count(b"\n") > 1 and got == Path(want).read_bytes(),
-              f"{tag} {name}: {path} differs from {want}")
-
     kin, _ = step("agmat", lambda: G.agmat(ctx["prefix"], mesh=mesh))
     np.testing.assert_allclose(kin, ctx["gmat_lst"][0], rtol=1e-10,
                                atol=1e-12, err_msg=f"{tag} agmat")
@@ -2145,11 +2183,11 @@ def mesh_calls(K, ctx, mesh, single):
     step("remma_epiAA_approx", lambda: G.remma_epiAA_approx(
         *args, p_cut=1e-5, num_random_pair=100000, out_file=approx,
         mesh=mesh))
-    same_bytes("remma_epiAA_approx", approx, wd / "epiAA")
+    same_bytes(f"{tag} remma_epiAA_approx", approx, wd / "epiAA")
     ad = str(wd / f"epiAD_maf_eff.{tag}")
     step("remma_epiAD_maf_eff", lambda: G.remma_epiAD_maf_eff(
         *args, out_file=ad, mesh=mesh, **single["ad_kw"]))
-    same_bytes("remma_epiAD_maf_eff", ad, single["ad_file"])
+    same_bytes(f"{tag} remma_epiAD_maf_eff", ad, single["ad_file"])
     scan = str(wd / f"epiAA_part.{tag}")
     budget = pairs_mod._SCAN_PAIR_BUDGET
     pairs_mod._SCAN_PAIR_BUDGET = 1 << 21  # 2 runs: one per shard
@@ -2159,11 +2197,11 @@ def mesh_calls(K, ctx, mesh, single):
             out_file=scan, mesh=mesh))
     finally:
         pairs_mod._SCAN_PAIR_BUDGET = budget
-    same_bytes("remma_epiAA", scan, wd / "epiAA_parallel.1")
+    same_bytes(f"{tag} remma_epiAA", scan, wd / "epiAA_parallel.1")
     pair = str(wd / f"rp.res.{tag}")
     step("remma_epiAA_pair", lambda: G.remma_epiAA_pair(
         *args, str(wd / "rp"), p_cut=1.1, out_file=pair, mesh=mesh))
-    same_bytes("remma_epiAA_pair", pair, wd / "rp.res")
+    same_bytes(f"{tag} remma_epiAA_pair", pair, wd / "rp.res")
     # K1: one count and one extract per sweep and shard; K2: one per run
     want = {"agmat": (0, 0), "remma_epiAA_approx": (shards, 0),
             "remma_epiAD_maf_eff": (2 * shards, 0), "remma_epiAA": (0, 2),
@@ -2387,6 +2425,438 @@ def mesh_phase(K, ctx):
     record["gloo_world"] = gloo_world(K, ctx)
     record["gloo_world"]["phase_s"] = time.perf_counter() - t0
     return record
+
+
+# the entry points that only CPU tests held before ----------------------------
+
+SELECT_SHAPE = (32, 2000)  # anchors x partners of each legacy _select_cpu call
+EPI_MOUSE_P = 1e-2  # p_cut of the whole mouse uvlmm_gwas_epiAA
+
+
+def hold_anchors(K, name, mat, pieces, anchors, crit, center, tab, m):
+    """The exact-scan kernel over `anchors` x the partners above them
+    against its plain version (`exact_compare`), both timed once by CUDA
+    events, and the rows of those anchors in the entry point's table `tab`
+    (snp_0 snp_1 eff chi p_val, read from its file) against the kernel's:
+    the same pairs in the same order, eff and chi to the last bits (each
+    pair is computed alone).  Returns the comparison's record."""
+    import numpy as np
+    import torch
+
+    a_t = torch.as_tensor(np.asarray(anchors), device="cuda")
+    args = (mat, mat, pieces.pymat, pieces.pvpmat, a_t, crit, "tri", center)
+    got, ms = timed(lambda: K.exact_hits(*args))
+    want, plain_ms = timed(lambda: K.exact_hits_ref(*args))
+    common, err = exact_compare(name, got, want, crit, m)
+    i, j, eff, _, chi = (t.cpu().numpy() for t in got)
+    rows = tab[np.isin(tab[:, 0], np.asarray(anchors))]
+    check(len(rows) == len(i) and np.array_equal(rows[:, 0], i)
+          and np.array_equal(rows[:, 1], j),
+          f"{name}: the table's rows of its anchors are not the kernel's")
+    np.testing.assert_allclose(rows[:, 2:4], np.stack([eff, chi], 1),
+                               rtol=1e-15, err_msg=f"{name}: table values")
+    pairs = K.exact_pair_count(a_t, m, "tri")
+    return {"anchors": len(anchors), "pairs": pairs, "hits": len(i),
+            "common": common, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms}
+
+
+def scan_table(name, path):
+    """The `snp_0 snp_1 eff chi p_val` table of an exhaustive scan's file,
+    (rows, columns), after its header is checked."""
+    import numpy as np
+
+    with open(path) as f:
+        head = f.readline().split()
+    check(head == ["snp_0", "snp_1", "eff", "chi", "p_val"],
+          f"{name}: header {head}")
+    return np.loadtxt(path, skiprows=1, ndmin=2).reshape(-1, 5)
+
+
+def whole_triangle(K, ctx, step):
+    """remma_epiAA over every anchor of the yeast set (398,170,090 pairs):
+    K2 launched once per anchor run of `_scan_anchors`; the rows sorted
+    with p_val in [0, 1e-5); the planted pairs; part 1 of 100's rows equal
+    to `epiAA_parallel.1`'s lines; the approx table's pairs past the
+    threshold present (and those below it absent) with eff, var and chi
+    at EXACT_RTOL, apart from the pairs within crit·(1 ± EXACT_BAND); the
+    middle anchor run and the last (the triangle's ragged end) held
+    against the plain version.  Returns the `epiAA whole-triangle` record,
+    with the approx pipeline's recall of this exhaustive table."""
+    import numpy as np
+    import torch
+    from scipy.stats import chi2
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.scan import pairs as pairs_mod
+    from gmat_tpu_torch.scan.common import (coded_matrix,
+                                            design_matrix_cached,
+                                            prepare_genotypes_device,
+                                            score_pieces_cached)
+
+    m = YEAST[1]
+    wd, name = ctx["workdir"], "remma_epiAA[whole triangle]"
+    out = str(wd / "epiAA_whole")
+    step(name, lambda: G.remma_epiAA(
+        ctx["pheno"], ctx["prefix"], ctx["gmat_lst"], ctx["var_com"],
+        p_cut=1e-5, out_file=out))
+    anchors = np.arange(m - 1)
+    per = K.pairs_per_anchor(torch.from_numpy(anchors), m, "tri").numpy()
+    runs = list(pairs_mod._anchor_runs(anchors, per,
+                                       pairs_mod._SCAN_PAIR_BUDGET))
+    pairs = int(per.sum())
+    check(pairs == 398170090, f"{pairs} pairs in the triangle")
+    check(ctx["launches"][name] == {"screen_count": 0, "screen_extract": 0,
+                                    "exact_scan": len(runs)},
+          f"{name}: launches {ctx['launches'][name]}, want K2 {len(runs)}")
+    tab = scan_table(name, out)
+    i, j = tab[:, 0].astype(np.int64), tab[:, 1].astype(np.int64)
+    keys = i * m + j
+    check(len(tab) > 0 and bool(np.all(j > i))
+          and bool(np.all(np.diff(keys) > 0)),
+          f"{name}: rows not anchors ascending, partners above them")
+    check(bool(np.all((tab[:, 4] >= 0) & (tab[:, 4] < 1e-5))),
+          f"{name}: p_val outside [0, 1e-5)")
+    found = set(zip(i.tolist(), j.tolist()))
+    check(set(ctx["planted"]) <= found, f"{name}: planted pairs "
+          f"{sorted(set(ctx['planted']) - found)} missing")
+
+    # part 1 of 100, the exhaustive part's file
+    part = set(pairs_mod.balanced_anchor_split(m, 100, 1))
+    with open(out) as f:
+        lines = f.read().splitlines()[1:]
+    mine = [ln for ln, a in zip(lines, i) if a in part]
+    with open(wd / "epiAA_parallel.1") as f:
+        want = f.read().splitlines()[1:]
+    check(len(mine) == len(want) and set(mine) == set(want),
+          f"{name}: {len(mine)} rows of part 1's anchors, "
+          f"epiAA_parallel.1 has {len(want)}: not the same lines")
+
+    # the approx table: its pairs past the threshold, not those below it
+    crit = float(chi2.isf(1e-5, 1))
+    rows = ctx["approx_rows"]
+    akeys = rows[:, 0].astype(np.int64) * m + rows[:, 1].astype(np.int64)
+    pos = np.minimum(np.searchsorted(keys, akeys), len(keys) - 1)
+    present = keys[pos] == akeys
+    near = np.abs(rows[:, 4] - crit) <= EXACT_BAND * crit
+    above, below = (rows[:, 4] > crit) & ~near, (rows[:, 4] < crit) & ~near
+    check(bool(np.all(present[above])) and not present[below].any(),
+          f"{name}: {int((above & ~present).sum())} approx pairs past the "
+          f"threshold missing, {int((below & present).sum())} below it "
+          "present")
+    hit = tab[pos[above]]
+    for col, got in (("eff", hit[:, 2]), ("var", hit[:, 2] ** 2 / hit[:, 3]),
+                     ("chi", hit[:, 3])):
+        k = {"eff": 2, "var": 3, "chi": 4}[col]
+        np.testing.assert_allclose(got, rows[above, k], rtol=EXACT_RTOL,
+                                   err_msg=f"{name} vs approx {col}")
+    approx_hits = set(akeys[rows[:, 6] < 1e-5].tolist())
+    common = len(approx_hits & set(keys.tolist()))
+
+    # two anchor runs against the plain version
+    dm = design_matrix_cached(ctx["pheno"], ctx["prefix"])
+    pieces = score_pieces_cached(dm, ctx["gmat_lst"], ctx["var_com"])
+    g, _ = prepare_genotypes_device(ctx["prefix"])
+    mat = coded_matrix(g, "add")
+    held = {tag: hold_anchors(K, f"{name} {tag} run", mat, pieces, run, crit,
+                              pairs_mod._has_intercept(dm), tab, m)
+            for tag, run in (("middle", runs[len(runs) // 2]),
+                             ("last", runs[-1]))}
+    wall = ctx["times"][name]
+    return {"anchors": len(anchors), "pairs": pairs, "runs": len(runs),
+            "wall_s": wall, "pairs_per_s": pairs / wall, "hits": len(tab),
+            "approx_rows_past_threshold": int(above.sum()),
+            "approx_hits": len(approx_hits), "approx_hits_in_table": common,
+            "approx_recall": common / len(tab), "held": held}
+
+
+def dd_part(K, ctx, step):
+    """remma_epiDD_parallel([100, 1]) on K2: its file byte-equal to
+    remma_epiDD over the part's anchors, 16 of its anchors held against
+    the plain version.  Returns the comparison's record."""
+    import numpy as np
+    from scipy.stats import chi2
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.scan.common import (coded_matrix,
+                                            design_matrix_cached,
+                                            prepare_genotypes_device,
+                                            score_pieces_cached)
+    from gmat_tpu_torch.scan.pairs import (_has_intercept,
+                                           balanced_anchor_split)
+
+    m, wd = YEAST[1], ctx["workdir"]
+    args = (ctx["pheno"], ctx["prefix"], ctx["gmat_lst"], ctx["var_com"])
+    part, whole = str(wd / "epiDD_parallel"), str(wd / "epiDD_part")
+    anchors = balanced_anchor_split(m, 100, 1)
+    step("remma_epiDD_parallel", lambda: G.remma_epiDD_parallel(
+        *args, parallel=[100, 1], p_cut=1e-5, out_file=part))
+    step("remma_epiDD[part anchors]", lambda: G.remma_epiDD(
+        *args, snp_lst_0=anchors, p_cut=1e-5, out_file=whole))
+    for name in ("remma_epiDD_parallel", "remma_epiDD[part anchors]"):
+        check(ctx["launches"][name] == {"screen_count": 0,
+                                        "screen_extract": 0, "exact_scan": 1},
+              f"{name}: launches {ctx['launches'][name]}, want K2 1")
+    same_bytes("remma_epiDD_parallel([100, 1])", part + ".1", whole)
+    tab = scan_table("remma_epiDD_parallel", part + ".1")
+    check(bool(np.all((tab[:, 4] >= 0) & (tab[:, 4] < 1e-5))),
+          "remma_epiDD_parallel: p_val outside [0, 1e-5)")
+    pick = set(np.random.default_rng(SEED + 9).choice(
+        anchors, 16, replace=False).tolist())
+    dm = design_matrix_cached(ctx["pheno"], ctx["prefix"])
+    g, _ = prepare_genotypes_device(ctx["prefix"])
+    held = hold_anchors(
+        K, "remma_epiDD_parallel 16 anchors", coded_matrix(g, "dom"),
+        score_pieces_cached(dm, ctx["gmat_lst"], ctx["var_com"]),
+        [a for a in anchors if a in pick], float(chi2.isf(1e-5, 1)),
+        _has_intercept(dm), tab, m)
+    return {"anchors": len(anchors), "rows": len(tab), "held": held}
+
+
+def maf_eff_parts(ctx, step):
+    """remma_epi{AA,AD,DD}_maf_eff_parallel([100, 1]) on K1's general path
+    against the full remma_epi*_maf_eff table under the same bins and cut
+    table (AA and AD: the maf approx runs' denominators; DD: the DD approx
+    run's var_app in every bin): the part's lines are the full table's
+    lines of its anchors, byte for byte.  Returns {kind: rows}."""
+    import numpy as np
+    from scipy.stats import chi2
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.scan.common import prepare_genotypes
+    from gmat_tpu_torch.scan.screen import (_het_bins, _maf_bins,
+                                            _parallel_anchor_split)
+
+    wd = ctx["workdir"]
+    args = (ctx["pheno"], ctx["prefix"], ctx["gmat_lst"], ctx["var_com"])
+    geno, _, _ = prepare_genotypes(ctx["prefix"])
+    maf, het = _maf_bins(geno)[1], _het_bins(geno)[1]
+
+    def deno_of(path):
+        deno = np.ones(111)
+        for k1, k2, v in np.loadtxt(path, ndmin=2):
+            deno[int(k1) * 10 + int(k2)] = v
+        return deno
+
+    dd = np.loadtxt(wd / "remma_epiDD_approx", skiprows=1, ndmin=2)
+    var_dd = float(np.median(dd[:, 2] ** 2 / chi2.isf(dd[:, 5], 1)))
+    kws = {
+        "AA": ({"freq": maf}, deno_of(wd / "remma_epiAA_maf_approx"
+                                            ".freq_denominator"), 1),
+        "AD": ({"freqA": maf, "freqD": het},
+               deno_of(wd / "remma_epiAD_maf_approx.freq_denominator"), 2),
+        "DD": ({"freq": het}, np.full(111, var_dd), 1)}
+    record = {}
+    for kind, (bins, deno, sweeps) in kws.items():
+        full = str(wd / f"epi{kind}_maf_eff")
+        part = str(wd / f"epi{kind}_maf_eff_parallel")
+        kw = dict(bins, freq_deno=deno, p_cut=1e-5)
+        for name, call in (
+                (f"remma_epi{kind}_maf_eff", lambda: getattr(
+                    G, f"remma_epi{kind}_maf_eff")(*args, out_file=full,
+                                                   **kw)),
+                (f"remma_epi{kind}_maf_eff_parallel", lambda: getattr(
+                    G, f"remma_epi{kind}_maf_eff_parallel")(
+                        *args, parallel=[100, 1], out_file=part, **kw))):
+            step(name, call)
+            check(ctx["launches"][name] == {"screen_count": sweeps,
+                                            "screen_extract": sweeps,
+                                            "exact_scan": 0},
+                  f"{name}: launches {ctx['launches'][name]}, want "
+                  f"{sweeps} sweep(s)")
+        anchors = set(_parallel_anchor_split(kind, ctx["prefix"], [100, 1],
+                                             maf=True))
+        with open(full) as f:
+            head = f.readline()
+            lines = f.read().splitlines()
+        # the flipped AD sweep writes (partner, anchor): the anchor is the
+        # smaller id in every row
+        want = [ln for ln in lines
+                if min(map(int, ln.split()[:2])) in anchors]
+        with open(part + ".1") as f:
+            check(f.readline() == head, f"epi{kind}_maf_eff_parallel: header")
+            got = f.read().splitlines()
+        check(len(want) > 0 and got == want,
+              f"remma_epi{kind}_maf_eff_parallel([100, 1]): {len(got)} "
+              f"rows, the full table has {len(want)} for its anchors")
+        record[kind] = {"rows": len(lines), "part_rows": len(got),
+                        "anchors": len(anchors)}
+    return record
+
+
+def mouse_epiAA(ctx, step):
+    """uvlmm_gwas_epiAA on the mouse set (1304 x 1407, 989,121 pairs):
+    the golden's 40 picked SNPs (tests/golden/uvlmm_extras.npz) at
+    tests/test_uvlmm_extras.py's tolerances; the whole panel at p_cut
+    `EPI_MOUSE_P`: rows below it, anchors ascending, the golden's pairs
+    below it present with the golden's values, 16 rows against a direct
+    f64 GLS fit.  Returns the comparison's record."""
+    import numpy as np
+    import torch
+    from scipy.stats import chi2
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.core.coding import additive_code
+    from gmat_tpu_torch.grm.grm import additive_grm
+    from gmat_tpu_torch.io.bed import Bed, write_bed
+    from gmat_tpu_torch.io.pheno import design_matrix
+
+    dev, wd = torch.device("cuda"), ctx["workdir"]
+    prefix = str(MOUSE / "plink")
+    gold = np.load(GOLD / "uvlmm_extras.npz")
+    picked, var, want = gold["picked"], gold["var_2g"], gold["epi"]
+    dm = design_matrix(str(MOUSE / "pheno"), prefix)
+    geno = G.read_plink(prefix)
+    g_d = torch.as_tensor(geno, device=dev)
+    ag_d = additive_grm(g_d)
+    ag = ag_d.cpu().numpy()
+    bed = Bed(prefix)
+    sub = str(wd / "mouse_picked")
+    write_bed(sub, geno[:, picked], bim=bed.bim.iloc[picked], fam=bed.fam)
+    res = step("uvlmm_gwas_epiAA[mouse, 40 picked]", lambda: G.uvlmm_gwas_epiAA(
+        dm.y, dm.xmat, [ag, ag * ag], var, sub))
+    check(len(res) == len(want)
+          and np.array_equal(res["snpi"].to_numpy(), want[:, 0])
+          and np.array_equal(res["snpj"].to_numpy(), want[:, 1]),
+          "uvlmm_gwas_epiAA on the 40 picked SNPs: not the golden's pairs")
+    close("uvlmm_gwas_epiAA picked eff", res["snp_eff"], want[:, 2], 1e-6,
+          atol=1e-10)
+    close("uvlmm_gwas_epiAA picked p", res["p_val"], want[:, 3], 1e-5,
+          atol=1e-12)
+
+    name = "uvlmm_gwas_epiAA[mouse]"
+    epi = step(name, lambda: G.uvlmm_gwas_epiAA(
+        dm.y, dm.xmat, [ag, ag * ag], var, prefix, p_cut=EPI_MOUSE_P,
+        out_file=str(wd / "uvlmm_epiAA_mouse")))
+    m = MOUSE_M
+    ii, jj = epi["snpi"].to_numpy(), epi["snpj"].to_numpy()
+    p = epi["p_val"].to_numpy()
+    check(len(epi) > 0 and bool(np.all(jj > ii))
+          and bool(np.all(np.diff(ii * m + jj) > 0)),
+          f"{name}: rows not anchors ascending, partners above them")
+    check(bool(np.all((p >= 0) & (p < EPI_MOUSE_P))),
+          f"{name}: p_val outside [0, {EPI_MOUSE_P:g})")
+    keys = ii * m + jj
+    gsel = want[:, 3] < EPI_MOUSE_P
+    gkeys = (picked[want[gsel, 0].astype(np.int64)] * m
+             + picked[want[gsel, 1].astype(np.int64)])
+    pos = np.minimum(np.searchsorted(keys, gkeys), len(keys) - 1)
+    check(bool(np.all(keys[pos] == gkeys)),
+          f"{name}: the golden's pairs below p_cut missing")
+    close(f"{name} golden eff", epi["snp_eff"].to_numpy()[pos],
+          want[gsel, 2], 1e-6, atol=1e-10)
+    close(f"{name} golden p", p[pos], want[gsel, 3], 1e-5, atol=1e-12)
+    pick = np.sort(np.random.default_rng(SEED + 10).choice(
+        len(epi), min(16, len(epi)), replace=False))
+    mat_a = additive_code(g_d)[0]
+    si = mat_a[:, torch.as_tensor(ii[pick], device=dev)].T[..., None]
+    sj = mat_a[:, torch.as_tensor(jj[pick], device=dev)].T[..., None]
+    n = g_d.shape[0]
+    vmat = (var[0] * ag_d + var[1] * ag_d * ag_d
+            + var[2] * torch.eye(n, dtype=torch.float64, device=dev))
+    x_d = torch.as_tensor(dm.xmat, device=dev)
+    eff, v = gls_last(torch.linalg.lu_factor(vmat),
+                      torch.cat([x_d.expand(len(pick), -1, -1), si, sj,
+                                 si * sj], dim=2),
+                      torch.as_tensor(dm.y, device=dev))
+    close(f"{name} vs GLS eff", epi["snp_eff"].to_numpy()[pick], eff.cpu(),
+          UVLMM_RTOL)
+    close(f"{name} vs GLS p", p[pick],
+          chi2.sf((eff * eff / v).cpu().numpy(), 1), UVLMM_RTOL)
+    return {"pairs": m * (m - 1) // 2, "rows": len(epi),
+            "golden_rows_below_p_cut": int(gsel.sum())}
+
+
+def select_calls(ctx, step):
+    """The legacy remma_epi{AA,AD,DD}_select_cpu on the design's
+    (y, X, Z) (`scan/legacy.py::_as_dm`), 32 seeded anchors x 2,000 seeded
+    partners, each row's eff, var, chi and p against the same pair's row
+    of remma_epi*_pair at EXACT_RTOL.  Returns {kind: rows}."""
+    import numpy as np
+
+    import gmat_tpu_torch as G
+    from gmat_tpu_torch.io.pheno import design_matrix
+    from gmat_tpu_torch.scan import legacy
+
+    m, wd = YEAST[1], ctx["workdir"]
+    dm = design_matrix(ctx["pheno"], ctx["prefix"])
+    arrays = (dm.y, dm.xmat, dm.z_dense())
+    rng = np.random.default_rng(SEED + 11)
+    anchors = sorted(rng.choice(m, SELECT_SHAPE[0], replace=False).tolist())
+    partners = sorted(rng.choice(m, SELECT_SHAPE[1], replace=False).tolist())
+    pair_file = str(wd / "select_pairs")
+    with open(pair_file, "w") as f:
+        f.write("snp_0 snp_1\n")
+        f.writelines(f"{a} {j}\n" for a in anchors for j in partners
+                     if j != a)
+    record = {}
+    for kind in ("AA", "AD", "DD"):
+        sel, ref = str(wd / f"select_{kind}"), str(wd / f"select_{kind}.pair")
+        step(f"remma_epi{kind}_select_cpu", lambda: getattr(
+            legacy, f"remma_epi{kind}_select_cpu")(
+                *arrays, ctx["gmat_lst"], ctx["var_com"], ctx["prefix"],
+                snp_lst_0=anchors, snp_lst_1=partners, out_file=sel))
+        step(f"remma_epi{kind}_pair[select pairs]", lambda: getattr(
+            G, f"remma_epi{kind}_pair")(
+                ctx["pheno"], ctx["prefix"], ctx["gmat_lst"],
+                ctx["var_com"], pair_file, p_cut=1.1, out_file=ref))
+        got = np.loadtxt(sel, skiprows=1, ndmin=2)
+        want = np.loadtxt(ref, skiprows=1, ndmin=2)
+        gk = got[:, 0].astype(np.int64) * m + got[:, 1].astype(np.int64)
+        wk = want[:, 0].astype(np.int64) * m + want[:, 1].astype(np.int64)
+        # select keeps p < 1: every pair of the list but those with p = 1
+        check(len(got) > 0 and set(gk.tolist()) == set(wk[want[:, 5] < 1.0]
+                                                      .tolist()),
+              f"remma_epi{kind}_select_cpu: {len(got)} rows, not the pairs "
+              "of its lists")
+        order = np.argsort(wk)
+        w = want[order[np.searchsorted(wk[order], gk)]]
+        for k, col in ((2, "eff"), (3, "var"), (4, "chi"), (5, "p")):
+            close(f"remma_epi{kind}_select_cpu {col}", got[:, k], w[:, k],
+                  EXACT_RTOL, floor=1e-12)
+        record[kind] = len(got)
+    return record
+
+
+def coverage_phase(K, ctx):
+    """The entry points that only CPU tests held before, on the yeast set
+    that `main_path` wrote (and the mouse set for uvlmm_gwas_epiAA), each
+    call with the launch counts set to 0 just before it and read just
+    after: (a) the whole AA triangle through remma_epiAA, (b)
+    remma_epiDD_parallel, (c) remma_epi{AA,AD,DD}_maf_eff_parallel, (d)
+    uvlmm_gwas_epiAA on the mouse set, (e) the legacy
+    remma_epi{AA,AD,DD}_select_cpu, (f) simu_epistasis_freq against
+    numpy.  Returns (step times, launches, record)."""
+    import numpy as np
+
+    import gmat_tpu_torch as G
+
+    times, launches = {}, {}
+    ctx = dict(ctx, times=times, launches=launches)
+    step = partial(counted_step, K, times, launches)
+
+    record = {"whole_triangle": whole_triangle(K, ctx, step),
+              "dd_part": dd_part(K, ctx, step),
+              "maf_eff_parts": maf_eff_parts(ctx, step),
+              "mouse_epiAA": mouse_epiAA(ctx, step),
+              "select_cpu": select_calls(ctx, step)}
+
+    n, m = YEAST
+    wd = ctx["workdir"] / "freq"
+    wd.mkdir()
+    ratio, mean, res_var = [2.0, 1.0, 0.5, 0.5, 0.5, 1.0], 1.0, 1.0
+    paths = seeded_effects(wd, m, np.random.default_rng(SEED + 12))
+    sim = str(wd / "sim")
+    step("simu_epistasis_freq", lambda: G.simu_epistasis_freq(
+        ctx["prefix"], *paths, out_file=sim, seed=SEED))
+    simulation_checks("simu_epistasis_freq", paths, sim, simulate_numpy(
+        ctx["prefix"], paths, ratio, mean, res_var, SEED, freq_based=True), n)
+    for name in ("simu_epistasis_freq", "uvlmm_gwas_epiAA[mouse]",
+                 "uvlmm_gwas_epiAA[mouse, 40 picked]") + tuple(
+                     f"remma_epi{k}_select_cpu" for k in ("AA", "AD", "DD")):
+        check(not any(launches[name].values()),
+              f"{name} launched a hand kernel: {launches[name]}")
+    return times, launches, record
 
 
 BENCH_EXTRA = (  # bench.py's `extra` keys, in its order
@@ -2655,6 +3125,9 @@ def main():
         t0 = time.perf_counter()
         mesh_record = mesh_phase(K, ctx)
         phase_s["mesh"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cov_times, cov_launches, cov_record = coverage_phase(K, ctx)
+        phase_s["coverage"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     bench_line, bench_record = bench_phase(K)
     phase_s["bench"] = time.perf_counter() - t0
@@ -2685,6 +3158,12 @@ def main():
     print(f"bench on {gpu_line}: {json.dumps(bench_line)}", flush=True)
     print(f"bench kernels on {gpu_line}: {json.dumps(bench_record)}",
           flush=True)
+    print(f"coverage launches {json.dumps(cov_launches)}", flush=True)
+    print(f"coverage step times (s) on {gpu_line}: {json.dumps(cov_times)}",
+          flush=True)
+    print(f"epiAA whole-triangle on {gpu_line}: "
+          f"{json.dumps(cov_record.pop('whole_triangle'))}", flush=True)
+    print(f"coverage on {gpu_line}: {json.dumps(cov_record)}", flush=True)
     print(f"phase times (s): {json.dumps(phase_s)}", flush=True)
 
     yeast = cases[0]

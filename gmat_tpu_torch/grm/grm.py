@@ -72,8 +72,8 @@ def _run_grm(bed_prefix, kind, inv, small_val, out_fmt, impute_seed, device,
 
 
 def agmat(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
-          out_fmt: str = "mat", impute_seed: int = 0, device=None,
-          mesh=None):
+          out_fmt: str = "mat", impute_seed: int = 0, mesh=None,
+          device=None):
     """Additive GRM (and optional inverse); writes `<prefix>.agrm*`.
     Returns (kin, kin_inv) as host arrays.  With `mesh`, the Gram product
     shards SNP columns over it."""
@@ -82,8 +82,8 @@ def agmat(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
 
 
 def dgmat_as(bed_prefix: str, inv: bool = False, small_val: float = 0.001,
-             out_fmt: str = "mat", impute_seed: int = 0, device=None,
-             mesh=None):
+             out_fmt: str = "mat", impute_seed: int = 0, mesh=None,
+             device=None):
     """Dominance GRM (and optional inverse); writes `<prefix>.dgrm_as*`.
     Returns (kin, kin_inv) as host arrays.  With `mesh`, the Gram product
     shards SNP columns over it."""

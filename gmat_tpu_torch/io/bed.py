@@ -7,17 +7,22 @@ Counterpart of `gmat_tpu/io/bed.py`.  PLINK 2-bit codes {0b00, 0b01, 0b10,
    loaded by path through ctypes (built with its Makefile on first use);
 2. a pure-numpy decoder, used when the native library cannot be built.
 
-The on-device unpack of the packed bytes lives in `scan/common.py`.
+`unpack_codes_device` unpacks the packed bytes on a torch device with the
+same code table.
 """
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from dataclasses import dataclass
 from pathlib import Path
 
 import numpy as np
 import pandas as pd
+import torch
+
+from gmat_tpu_torch.config import resolve_device
 
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _LIB_PATH = _CSRC / "libgmat_native.so"
@@ -49,6 +54,11 @@ def _load_native():
                        ctypes.POINTER(ctype)]
     _lib = lib
     return _lib
+
+
+def count_lines(path: str | os.PathLike) -> int:
+    with open(path, "rb") as f:
+        return sum(chunk.count(b"\n") for chunk in iter(lambda: f.read(1 << 20), b""))
 
 
 @dataclass
@@ -125,6 +135,25 @@ def read_bed_raw(bed_path: str, num_id: int, num_snp: int) -> np.ndarray:
     if raw.size != expect:
         raise IOError(f"{bed_path}: expected {expect} payload bytes, got {raw.size}")
     return raw.reshape(num_snp, bytes_per_snp)
+
+
+def unpack_codes_device(raw, num_id: int, missing_value: float = float("nan")):
+    """Packed 2-bit codes, (num_snp, bytes_per_snp) uint8, to the
+    (num_id, num_snp) float64 dosage tensor on `raw`'s device, through the
+    table {0: 0.0, 1: missing_value, 2: 1.0, 3: 2.0}.
+
+    `raw` is a uint8 tensor, or an array that goes to the default device.
+    The screen's own unpack (`scan/common.py::_unpack_f64_device`) assumes
+    no missing codes and computes the dosage arithmetically."""
+    if not isinstance(raw, torch.Tensor):
+        raw = torch.as_tensor(np.asarray(raw, dtype=np.uint8),
+                              device=resolve_device())
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8, device=raw.device)
+    codes = (raw[..., None] >> shifts) & 3
+    codes = codes.reshape(raw.shape[0], -1)[:, :num_id]
+    lut = torch.tensor([0.0, missing_value, 1.0, 2.0], dtype=torch.float64,
+                       device=raw.device)
+    return lut[codes.long()].T
 
 
 def impute_geno(snp_mat: np.ndarray, seed: int = 0) -> np.ndarray:

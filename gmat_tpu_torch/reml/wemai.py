@@ -10,9 +10,11 @@ Counterpart of the float64 path of `gmat_tpu/reml/wemai.py`:
   (`core.linalg.weighted_ai_step`);
 - dual convergence on ‖Δ‖/‖σ²‖ < cc_par and ‖∇‖ < cc_gra.
 
-The JAX package's `precision=` argument (a mixed-precision inverse for the
-TPU, where float64 is emulated) has no counterpart: Hopper has native
-FP64, so every step here is float64.
+The entry points take the JAX package's `precision=` ("auto", "f64" or
+"mixed", any case) and reject any other value, but every value runs the
+float64 path: the JAX package's mixed-precision inverse exists for the
+TPU, where float64 is emulated, and Hopper has native FP64.  The JAX
+package's `GMAT_TPU_REML` override selects that TPU path and is not read.
 """
 from __future__ import annotations
 
@@ -75,9 +77,19 @@ def _reml_step(var_com, y, xmat, zg_stack):
     return var_new, ll_val, cc_par, cc_gra, weights[idx]
 
 
+def _check_precision(precision: str) -> None:
+    """Raise ValueError, as the JAX package does, for a `precision` other
+    than "auto", "f64" or "mixed"; all three run in float64 here."""
+    mode = str(precision).lower()
+    if mode not in ("auto", "f64", "mixed"):
+        raise ValueError(f"unknown REML precision {mode!r}")
+
+
 def wemai_reml(dm: DesignMatrices, gmat_lst, init=None, maxiter: int = 200,
-               cc_par: float = 1.0e-8, cc_gra: float = 1.0e-6, device=None):
+               cc_par: float = 1.0e-8, cc_gra: float = 1.0e-6,
+               precision: str = "auto", device=None):
     """Core REML driver; returns the converged variance-component vector."""
+    _check_precision(precision)
     dev = resolve_device(device)
     k = len(gmat_lst)
     var_com = (np.array(init, dtype=np.float64) if init is not None
@@ -107,11 +119,14 @@ def wemai_reml(dm: DesignMatrices, gmat_lst, init=None, maxiter: int = 200,
 def wemai_multi_gmat(pheno_file: str, bed_prefix: str, gmat_lst, init=None,
                      maxiter: int = 200, cc_par: float = 1.0e-8,
                      cc_gra: float = 1.0e-6,
-                     out_file: str = "wemai_multi_gmat.var", device=None):
+                     out_file: str = "wemai_multi_gmat.var",
+                     precision: str = "auto", device=None):
     """File-level wrapper; writes the variance vector with np.savetxt."""
+    _check_precision(precision)
     dm = design_matrix(pheno_file, bed_prefix)
     var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
-                         cc_par=cc_par, cc_gra=cc_gra, device=device)
+                         cc_par=cc_par, cc_gra=cc_gra, precision=precision,
+                         device=device)
     np.savetxt(out_file, var_com)
     return var_com
 
@@ -131,19 +146,21 @@ def wemai_multi_gmat_pred(pheno_file: str, bed_prefix: str, gmat_lst,
                           init=None, maxiter: int = 200, cc_par: float = 1.0e-8,
                           cc_gra: float = 1.0e-6,
                           out_file: str = "wemai_multi_gmat_pred",
-                          device=None):
+                          precision: str = "auto", device=None):
     """REML + BLUP of the random effects over every genotyped individual,
     phenotyped or not; writes `<out>.var` and `<out>.rand_eff` (one row per
     .fam individual, one column per GRM) and returns the variances.
 
     Documented deviation, as in the JAX package: the reference builds the
     prediction's P from V where its estimation path uses V⁻¹; here P is
-    V⁻¹ − V⁻¹X(XᵀV⁻¹X)⁻¹XᵀV⁻¹.  There is no `precision=` argument (see the
-    module docstring)."""
+    V⁻¹ − V⁻¹X(XᵀV⁻¹X)⁻¹XᵀV⁻¹.  Every accepted `precision` computes both
+    the REML and the BLUPs in float64 (see the module docstring)."""
+    _check_precision(precision)
     dev = resolve_device(device)
     dm = design_matrix_pred(pheno_file, bed_prefix)
     var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
-                         cc_par=cc_par, cc_gra=cc_gra, device=dev)
+                         cc_par=cc_par, cc_gra=cc_gra, precision=precision,
+                         device=dev)
     np.savetxt(out_file + ".var", var_com)
     rand_eff = _blup_effects(
         torch.as_tensor(var_com, device=dev),

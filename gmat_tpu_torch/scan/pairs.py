@@ -64,8 +64,8 @@ def _coded_panels(bed_prefix, kind, device=None):
     return coded_matrix(g, k0), coded_matrix(g, k1), num_snp, _CODINGS[kind][2]
 
 
-def _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, device=None,
-               mesh=None):
+def _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=None,
+               device=None):
     """Pipeline-stage setup through the identity caches: the design parse,
     the O(n³) score pieces and the (n, m) coded panels are computed once
     and shared by the calibrate, screen and re-test stages.  With `mesh`,
@@ -97,10 +97,10 @@ def _pair_kernel(cols0, cols1, mat0, mat1, pymat, pvpmat):
 
 def _remma_epi_pair(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                     snp_pair_file, max_test_pair, p_cut, out_file,
-                    device=None, mesh=None):
+                    mesh=None, device=None):
     """Exact test for an explicit pair list, chunked max_test_pair at a time."""
     mat0, mat1, pieces, num_snp, _ = _epi_setup(
-        pheno_file, bed_prefix, gmat_lst, var_com, kind, device, mesh)
+        pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=mesh, device=device)
     return _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file,
                       max_test_pair, p_cut, out_file, mesh)
 
@@ -161,26 +161,26 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
 
 def remma_epiAA_pair(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file,
                      max_test_pair=50000, p_cut=1.0e-4, out_file="epiAA_pair",
-                     device=None, mesh=None):
+                     mesh=None, device=None):
     return _remma_epi_pair("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                            snp_pair_file, max_test_pair, p_cut, out_file,
-                           device, mesh)
+                           mesh=mesh, device=device)
 
 
 def remma_epiAD_pair(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file,
                      max_test_pair=50000, p_cut=1.0e-4, out_file="epiAD_pair",
-                     device=None, mesh=None):
+                     mesh=None, device=None):
     return _remma_epi_pair("AD", pheno_file, bed_prefix, gmat_lst, var_com,
                            snp_pair_file, max_test_pair, p_cut, out_file,
-                           device, mesh)
+                           mesh=mesh, device=device)
 
 
 def remma_epiDD_pair(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file,
                      max_test_pair=50000, p_cut=1.0e-4, out_file="epiDD_pair",
-                     device=None, mesh=None):
+                     mesh=None, device=None):
     return _remma_epi_pair("DD", pheno_file, bed_prefix, gmat_lst, var_com,
                            snp_pair_file, max_test_pair, p_cut, out_file,
-                           device, mesh)
+                           mesh=mesh, device=device)
 
 
 # the exhaustive scans ---------------------------------------------------------
@@ -295,11 +295,11 @@ def _validate_anchors(snp_lst_0, num_snp, triangular):
 
 
 def _remma_epi(kind, pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0,
-               p_cut, out_file, device=None, mesh=None):
+               p_cut, out_file, mesh=None, device=None):
     from gmat_tpu_torch.scan.common import design_matrix_cached
 
     mat0, mat1, pieces, num_snp, triangular = _epi_setup(
-        pheno_file, bed_prefix, gmat_lst, var_com, kind, device, mesh)
+        pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=mesh, device=device)
     snp_lst_0 = _validate_anchors(snp_lst_0, num_snp, triangular)
     # the design is cached: this is the object _epi_setup parsed
     dm = design_matrix_cached(pheno_file, bed_prefix)
@@ -309,24 +309,24 @@ def _remma_epi(kind, pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0,
 
 
 def remma_epiAA(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
-                p_cut=1.0e-5, out_file="epiAA", device=None, mesh=None):
+                p_cut=1.0e-5, out_file="epiAA", mesh=None, device=None):
     """Exhaustive additive x additive scan (strict upper triangle)."""
     return _remma_epi("AA", pheno_file, bed_prefix, gmat_lst, var_com,
-                      snp_lst_0, p_cut, out_file, device, mesh)
+                      snp_lst_0, p_cut, out_file, mesh=mesh, device=device)
 
 
 def remma_epiAD(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
-                p_cut=1.0e-5, out_file="epiAD", device=None, mesh=None):
+                p_cut=1.0e-5, out_file="epiAD", mesh=None, device=None):
     """Exhaustive additive x dominance scan (full ordered rectangle)."""
     return _remma_epi("AD", pheno_file, bed_prefix, gmat_lst, var_com,
-                      snp_lst_0, p_cut, out_file, device, mesh)
+                      snp_lst_0, p_cut, out_file, mesh=mesh, device=device)
 
 
 def remma_epiDD(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
-                p_cut=1.0e-5, out_file="epiDD", device=None, mesh=None):
+                p_cut=1.0e-5, out_file="epiDD", mesh=None, device=None):
     """Exhaustive dominance x dominance scan (strict upper triangle)."""
     return _remma_epi("DD", pheno_file, bed_prefix, gmat_lst, var_com,
-                      snp_lst_0, p_cut, out_file, device, mesh)
+                      snp_lst_0, p_cut, out_file, mesh=mesh, device=device)
 
 
 def balanced_anchor_split(num_snp: int, n_parts: int, part: int,
@@ -356,7 +356,8 @@ def _remma_epi_parallel(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     logger.info("Parallel part %d/%d: %d anchors", parallel[1], parallel[0],
                 len(snp_lst_0))
     return _remma_epi(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                      snp_lst_0, p_cut, f"{out_file}.{parallel[1]}", device)
+                      snp_lst_0, p_cut, f"{out_file}.{parallel[1]}",
+                      device=device)
 
 
 def remma_epiAA_parallel(pheno_file, bed_prefix, gmat_lst, var_com, parallel,

@@ -144,7 +144,7 @@ def _write_screen(out_file, idx0, idx1, eff):
 
 def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                    snp_lst_0, eff_cut_table, bins_a, bins_b, out_file,
-                   maf=False, dm=None, device=None, mesh=None):
+                   maf=False, dm=None, mesh=None, device=None):
     """Shared driver of the *_eff / *_maf_eff family.
 
     eff_cut_table: (111,) per-bin-pair |eff| cuts (flat for the non-MAF
@@ -241,7 +241,7 @@ def _num_snp(bed_prefix):
 
 def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                    snp_lst_0=None, var_app=1.0, p_cut=1.0e-5,
-                   out_file="epi_eff", dm=None, device=None, mesh=None):
+                   out_file="epi_eff", dm=None, mesh=None, device=None):
     chi_cut = chi2_isf(p_cut, 1)
     table = np.full(111, np.sqrt(chi_cut * var_app))
     bins = np.zeros(_num_snp(bed_prefix), dtype=np.int64)
@@ -258,7 +258,7 @@ def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                        snp_lst_0=None, bins_a=None, bins_b=None,
                        freq_deno=None, p_cut=1.0e-5, out_file="epi_maf_eff",
-                       dm=None, device=None, mesh=None):
+                       dm=None, mesh=None, device=None):
     chi_cut = chi2_isf(p_cut, 1)
     num_snp = _num_snp(bed_prefix)
     if bins_a is None:
@@ -281,7 +281,7 @@ def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiAA_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
                     var_app=1.0, p_cut=1.0e-5, out_file="epiAA_eff",
-                    device=None, mesh=None):
+                    mesh=None, device=None):
     return _remma_epi_eff("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                           snp_lst_0, var_app, p_cut, out_file, device=device,
                           mesh=mesh)
@@ -289,7 +289,7 @@ def remma_epiAA_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
 
 def remma_epiAD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
                     var_app=1.0, p_cut=1.0e-5, out_file="epiAD_eff",
-                    device=None, mesh=None):
+                    mesh=None, device=None):
     return _remma_epi_eff("AD", pheno_file, bed_prefix, gmat_lst, var_com,
                           snp_lst_0, var_app, p_cut, out_file, device=device,
                           mesh=mesh)
@@ -297,7 +297,7 @@ def remma_epiAD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
 
 def remma_epiDD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
                     var_app=1.0, p_cut=1.0e-5, out_file="epiDD_eff",
-                    device=None, mesh=None):
+                    mesh=None, device=None):
     return _remma_epi_eff("DD", pheno_file, bed_prefix, gmat_lst, var_com,
                           snp_lst_0, var_app, p_cut, out_file, device=device,
                           mesh=mesh)
@@ -305,8 +305,8 @@ def remma_epiDD_eff(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,
 
 def remma_epiAA_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
                         snp_lst_0=None, freq=None, freq_deno=None,
-                        p_cut=1.0e-5, out_file="epiAA_maf_eff", device=None,
-                        mesh=None):
+                        p_cut=1.0e-5, out_file="epiAA_maf_eff", mesh=None,
+                        device=None):
     """MAF-binned AA screen; `freq` = int(maf*20) bins for both SNPs."""
     return _remma_epi_maf_eff("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                               snp_lst_0, freq, freq, freq_deno, p_cut,
@@ -316,7 +316,7 @@ def remma_epiAA_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
 def remma_epiAD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
                         snp_lst_0=None, freqA=None, freqD=None,
                         freq_deno=None, p_cut=1.0e-5,
-                        out_file="epiAD_maf_eff", device=None, mesh=None):
+                        out_file="epiAD_maf_eff", mesh=None, device=None):
     """Binned AD screen; `freqA` = int(maf*20) bins of the A-coded side,
     `freqD` = int(het_freq*20) bins of the D-coded side."""
     return _remma_epi_maf_eff("AD", pheno_file, bed_prefix, gmat_lst, var_com,
@@ -326,8 +326,8 @@ def remma_epiAD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiDD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
                         snp_lst_0=None, freq=None, freq_deno=None,
-                        p_cut=1.0e-5, out_file="epiDD_maf_eff", device=None,
-                        mesh=None):
+                        p_cut=1.0e-5, out_file="epiDD_maf_eff", mesh=None,
+                        device=None):
     """Binned DD screen; `freq` = int(het_freq*20) heterozygote-frequency
     bins for both SNPs."""
     return _remma_epi_maf_eff("DD", pheno_file, bed_prefix, gmat_lst, var_com,
@@ -370,7 +370,7 @@ LAST_APPROX_STAGES: dict = {}
 
 
 def _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                 device=None, mesh=None):
+                 mesh=None, device=None):
     """Warm every cross-stage cache (design parse, score pieces, device
     genotype panel, codings; on each device of `mesh`) and wait for the
     devices, so that the stage timers below measure each stage's own
@@ -380,7 +380,7 @@ def _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     devices = ((resolve_device(device),) if mesh is None
                else mesh.distinct_devices)
     for dev in devices:
-        _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, dev)
+        _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
 
@@ -395,8 +395,8 @@ def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     `screen` callback)."""
     stages = {}
     t_all = time.perf_counter()
-    _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com, device,
-                 mesh)
+    _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com, mesh=mesh,
+                 device=device)
     stages["prep"] = time.perf_counter() - t_all
     logger.info("Random calibration: %d pairs", num_random_pair)
     rp = out_file + ".random_pair"
@@ -435,7 +435,7 @@ def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 def _remma_epi_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                       p_cut=1.0e-5, num_random_pair=100000,
                       out_file="epi_approx", snp_lst_0=None, seed=0,
-                      device=None, mesh=None):
+                      mesh=None, device=None):
     def screen(calib, approx_file):
         var_median = float(np.median(calib["var"]))
         logger.info("Approximate effect variance (median): %g", var_median)
@@ -479,7 +479,7 @@ def _bin_denominators(calib, bins_a, bins_b, symmetric, out_file):
 def _remma_epi_maf_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                           p_cut=1.0e-5, num_random_pair=100000,
                           out_file="epi_maf_approx", snp_lst_0=None, seed=0,
-                          device=None, mesh=None):
+                          mesh=None, device=None):
     from gmat_tpu_torch.scan.common import prepare_genotypes
 
     def screen(calib, approx_file):
@@ -513,8 +513,8 @@ def _remma_epi_maf_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiAA_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                        p_cut=1.0e-5, num_random_pair=100000,
-                       out_file="epiAA_approx", seed=0, device=None,
-                       mesh=None):
+                       out_file="epiAA_approx", seed=0, mesh=None,
+                       device=None):
     """Flagship fast pipeline: calibrate -> screen -> exact re-test -> merge."""
     return _remma_epi_approx("AA", pheno_file, bed_prefix, gmat_lst, var_com,
                              p_cut, num_random_pair, out_file, seed=seed,
@@ -523,8 +523,8 @@ def remma_epiAA_approx(pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiAD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                        p_cut=1.0e-5, num_random_pair=100000,
-                       out_file="epiAD_approx", seed=0, device=None,
-                       mesh=None):
+                       out_file="epiAD_approx", seed=0, mesh=None,
+                       device=None):
     return _remma_epi_approx("AD", pheno_file, bed_prefix, gmat_lst, var_com,
                              p_cut, num_random_pair, out_file, seed=seed,
                              device=device, mesh=mesh)
@@ -532,8 +532,8 @@ def remma_epiAD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiDD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                        p_cut=1.0e-5, num_random_pair=100000,
-                       out_file="epiDD_approx", seed=0, device=None,
-                       mesh=None):
+                       out_file="epiDD_approx", seed=0, mesh=None,
+                       device=None):
     return _remma_epi_approx("DD", pheno_file, bed_prefix, gmat_lst, var_com,
                              p_cut, num_random_pair, out_file, seed=seed,
                              device=device, mesh=mesh)
@@ -541,8 +541,8 @@ def remma_epiDD_approx(pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiAA_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                            p_cut=1.0e-5, num_random_pair=100000,
-                           out_file="epiAA_maf_approx", seed=0, device=None,
-                           mesh=None):
+                           out_file="epiAA_maf_approx", seed=0, mesh=None,
+                           device=None):
     return _remma_epi_maf_approx("AA", pheno_file, bed_prefix, gmat_lst,
                                  var_com, p_cut, num_random_pair, out_file,
                                  seed=seed, device=device, mesh=mesh)
@@ -550,8 +550,8 @@ def remma_epiAA_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiAD_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                            p_cut=1.0e-5, num_random_pair=100000,
-                           out_file="epiAD_maf_approx", seed=0, device=None,
-                           mesh=None):
+                           out_file="epiAD_maf_approx", seed=0, mesh=None,
+                           device=None):
     return _remma_epi_maf_approx("AD", pheno_file, bed_prefix, gmat_lst,
                                  var_com, p_cut, num_random_pair, out_file,
                                  seed=seed, device=device, mesh=mesh)
@@ -559,8 +559,8 @@ def remma_epiAD_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
 
 def remma_epiDD_maf_approx(pheno_file, bed_prefix, gmat_lst, var_com,
                            p_cut=1.0e-5, num_random_pair=100000,
-                           out_file="epiDD_maf_approx", seed=0, device=None,
-                           mesh=None):
+                           out_file="epiDD_maf_approx", seed=0, mesh=None,
+                           device=None):
     return _remma_epi_maf_approx("DD", pheno_file, bed_prefix, gmat_lst,
                                  var_com, p_cut, num_random_pair, out_file,
                                  seed=seed, device=device, mesh=mesh)

@@ -83,9 +83,10 @@ def test_wemai_multi_gmat_matches_jax(tmp_path, mouse_pheno, mouse_prefix,
     ag, _ = grms
     out_t, out_j = str(tmp_path / "var_t.txt"), str(tmp_path / "var_j.txt")
     got = twemai.wemai_multi_gmat(mouse_pheno, mouse_prefix, [ag, ag * ag],
-                                  out_file=out_t, device="cpu")
+                                  out_file=out_t, precision="f64",
+                                  device="cpu")
     want = jwemai.wemai_multi_gmat(mouse_pheno, mouse_prefix, [ag, ag * ag],
-                                   out_file=out_j)
+                                   out_file=out_j, precision="f64")
     np.testing.assert_allclose(got, want, rtol=1e-6)
     np.testing.assert_allclose(np.loadtxt(out_t), np.loadtxt(out_j),
                                rtol=1e-6)
