@@ -1,0 +1,53 @@
+"""The yardstick of the rooflines: the card's published peaks and the least
+work of each kernel's call, from its inputs' shapes.
+
+Peaks of one NVIDIA H100 SXM (80 GB HBM3) at its 700 W power limit,
+dense: 495 TFLOP/s TF32 on the tensor cores, 67 TFLOP/s FP64 on the
+tensor cores, 3.35 TB/s of HBM.  A share is stated against these with the
+card's power limit beside it.
+
+- K1, the effect screen (`screen_count*` and `screen_extract*`): the
+  least work of one screen is 2n FLOP per pair (a multiply and an add per
+  individual) over all m(m-1)/2 pairs, of float32-grade precision; the
+  kernel reaches it with three TF32 products per multiply-add (3xTF32), so
+  its peak is 495 / 3 = 165 TFLOP/s.  The least bytes: the (n, m) float32
+  panel and py read once.
+- K2, the exact scan (`exact_scan`): n² + 7n FP64 FLOP per pair tested
+  (the quadratic form eᵀPe over the symmetric half of P, n² multiply-adds
+  counted once each for the n(n+1)/2 terms, plus forming e, eᵀpy and the
+  chi), at 67 TFLOP/s.  The least bytes: P (n² float64) and the two coded
+  panels read once.
+"""
+from __future__ import annotations
+
+PEAK = {
+    "tf32_tensor": 495e12,
+    "fp64_tensor": 67e12,
+    "hbm_bytes": 3.35e12,
+}
+K1_PEAK = PEAK["tf32_tensor"] / 3.0
+K2_PEAK = PEAK["fp64_tensor"]
+
+
+def screen_pairs(m):
+    """Pairs j > i of an m-SNP screen over every anchor."""
+    return m * (m - 1) // 2
+
+
+def k1_least_seconds(n, m):
+    """Least time of one screen of an (n, m) panel."""
+    flop = 2.0 * n * screen_pairs(m)
+    nbytes = 4.0 * n * m + 4.0 * n
+    return max(flop / K1_PEAK, nbytes / PEAK["hbm_bytes"])
+
+
+def k2_pair_flop(n):
+    """Least FP64 FLOP of one exactly tested pair."""
+    return float(n) * n + 7.0 * n
+
+
+def k2_least_seconds(n, m, pairs):
+    """Least time of an exact scan of `pairs` pairs of an (n, m) panel."""
+    flop = pairs * k2_pair_flop(n)
+    nbytes = 8.0 * n * n + 2 * 8.0 * n * m
+    return max(flop / K2_PEAK, nbytes / PEAK["hbm_bytes"])

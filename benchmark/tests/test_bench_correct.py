@@ -1,0 +1,137 @@
+"""The check that decides `correct`, on the CPU at a small size: sound runs
+pass; the control (the reference one precision lower in the program's
+place) and runs with the timed path broken underneath fail.  The harness
+runs as it does on the card, with the program's kernels replaced by their
+plain versions (device "cpu")."""
+import numpy as np
+import pytest
+import torch
+
+from benchmark import harness
+from benchmark.program import Control
+from benchmark.tests.conftest import small
+
+CELLS = ("yeast.approx_aa", "yeast.exact_aa_parts", "mouse.exact_aa")
+
+
+def run(bench, cell, program_cls=harness.Program, seed=2**33 + 11):
+    config, traffic = small(cell, bench)
+    return harness.run_cell(bench, cell, seed, 1.0, False, device="cpu",
+                            program_cls=program_cls, config=config,
+                            traffic=traffic)
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_sound_runs_are_correct(bench, cell):
+    res, checks = run(bench, cell)
+    assert res["correct"], checks
+    assert res["attempted"] >= 1 and res["failed"] == 0
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_the_control_is_not_correct(bench, cell):
+    res, checks = run(bench, cell, program_cls=Control)
+    assert not res["correct"], checks
+
+
+def reml_unchanged(monkeypatch):
+    """REML returns its starting state (all ones) unchanged."""
+    from gmat_tpu_torch.reml import wemai
+
+    monkeypatch.setattr(wemai, "wemai_reml",
+                        lambda dm, gmat_lst, **kw: np.ones(len(gmat_lst) + 1))
+
+
+def exact_hit_altered(monkeypatch):
+    """The exact-scan kernel returns one hit's eff off by a part in 1e6."""
+    from gmat_tpu_torch.scan import kernels
+
+    real = kernels.exact_hits
+
+    def broken(*args, **kw):
+        i, j, eff, var, chi = real(*args, **kw)
+        eff = eff.clone()
+        eff[:1] *= 1.0 + 1e-6
+        return i, j, eff, var, chi
+
+    monkeypatch.setattr(kernels, "exact_hits", broken)
+
+
+def exact_half_dropped(monkeypatch):
+    """The exact-scan kernel returns only the first half of its hits."""
+    from gmat_tpu_torch.scan import kernels
+
+    real = kernels.exact_hits
+
+    def broken(*args, **kw):
+        out = real(*args, **kw)
+        return tuple(t[: (len(t) + 1) // 2] for t in out)
+
+    monkeypatch.setattr(kernels, "exact_hits", broken)
+
+
+def screen_hit_dropped(monkeypatch):
+    """The screen drops its first hit."""
+    from gmat_tpu_torch.scan import screen
+
+    real = screen.screen_positions
+    monkeypatch.setattr(screen, "screen_positions",
+                        lambda *a, **kw: tuple(t[1:] for t in real(*a, **kw)))
+
+
+def pair_test_altered(monkeypatch):
+    """The exact pair test returns its first pair's var off by 1e-6."""
+    from gmat_tpu_torch.scan import pairs
+
+    real = pairs._pair_kernel
+
+    def broken(*args):
+        eff, var, chi, p = real(*args)
+        var = var.clone()
+        var[:1] *= 1.0 + 1e-6
+        return eff, var, eff * eff / var, p
+
+    monkeypatch.setattr(pairs, "_pair_kernel", broken)
+
+
+FAULTS = [
+    ("yeast.approx_aa", reml_unchanged),
+    ("yeast.approx_aa", screen_hit_dropped),
+    ("yeast.approx_aa", pair_test_altered),
+    ("yeast.exact_aa_parts", exact_hit_altered),
+    ("yeast.exact_aa_parts", exact_half_dropped),
+    ("mouse.exact_aa", reml_unchanged),
+    ("mouse.exact_aa", exact_hit_altered),
+]
+
+
+@pytest.mark.parametrize(
+    "size", ["small", pytest.param("cell", marks=pytest.mark.cuda)])
+@pytest.mark.parametrize("cell,fault", FAULTS,
+                         ids=[f"{c}-{f.__name__}" for c, f in FAULTS])
+def test_a_broken_timed_path_is_not_correct(bench, monkeypatch, cell, fault,
+                                            size):
+    """Each fault of the timed path: on the CPU at a small size, and on the
+    card in a short run of the full-size cell, where the compared numbers
+    print (`-s`) for PERF.md."""
+    fault(monkeypatch)
+    if size == "small":
+        res, checks = run(bench, cell)
+    else:
+        if not torch.cuda.is_available():
+            pytest.skip("needs a CUDA device")
+        res, checks = harness.run_cell(bench, cell, 2**33 + 29, 4.0, False)
+        print(f"fault {cell} {fault.__name__}: "
+              + " ".join(f"{k}={v['value']!r}" for k, v in checks.items()))
+    assert not res["correct"], checks
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", CELLS)
+def test_cells_on_the_card(bench, cell):
+    """One short run of each full-size cell on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    res, checks = harness.run_cell(bench, cell, 2**33 + 17, 2.0, False)
+    assert res["correct"], checks
+
