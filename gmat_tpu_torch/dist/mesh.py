@@ -37,6 +37,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from gmat_tpu_torch.core import spans
+
 
 @dataclass(frozen=True)
 class Mesh:
@@ -122,17 +124,20 @@ def _any_replica(x):
 
 def _map_shards(mesh: Mesh, fn, shares):
     """[fn(device, share) for each local shard], one host thread per shard
-    (none for a single shard), each thread under its CUDA device.  Every
-    shard runs to its end; the first exception, in shard order, is raised."""
+    (none for a single shard), each thread under its CUDA device and with
+    the caller's open span as the parent of its spans.  Every shard runs
+    to its end; the first exception, in shard order, is raised."""
     if len(shares) != len(mesh.devices):
         raise ValueError(f"{len(shares)} shares for {len(mesh.devices)} "
                          "local shards")
+    parent = spans.current()
 
     def run(dev, share):
-        if dev.type == "cuda":
-            with torch.cuda.device(dev):
-                return fn(dev, share)
-        return fn(dev, share)
+        with spans.inherit(parent):
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    return fn(dev, share)
+            return fn(dev, share)
 
     if len(shares) == 1:
         return [run(mesh.devices[0], shares[0])]

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from gmat_tpu_torch.config import EXACT_DTYPE, resolve_device
+from gmat_tpu_torch.core.spans import count
 
 _NA = {"NA", "NaN", "nan", "na"}
 
@@ -56,9 +57,13 @@ class DesignMatrices:
         return out.index_add_(0, self.rec_index(dev), b)
 
     def zgzt(self, gmat, device=None):
-        """Z G Zᵀ as a dense (n_rec, n_rec) float64 tensor."""
+        """Z G Zᵀ as a dense (n_rec, n_rec) float64 tensor.  A host GRM
+        (not a tensor) crosses to `device` here: its bytes count in
+        `h2d_bytes` (`core.spans`), on the CPU device too."""
         dev = resolve_device(device)
         idx = self.rec_index(dev)
+        if not isinstance(gmat, torch.Tensor):
+            count("h2d_bytes", np.asarray(gmat).nbytes)
         g = torch.as_tensor(gmat, dtype=EXACT_DTYPE, device=dev)
         return g.index_select(0, idx).index_select(1, idx)
 

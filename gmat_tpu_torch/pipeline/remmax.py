@@ -5,7 +5,8 @@ The reference's workflow is four manual steps glued together by files.
 `remmax()` runs the same pipeline with its stage artifacts on disk: the
 variance file `<out>.var` is the same contract in both packages, so a run
 resumes from a `.var` that either package wrote.  Each phase's wall time
-goes to `<out>.timings.json` (keys `grm`, `reml`, `scan`, `annotate`).
+goes to `<out>.timings.json` (keys `grm`, `reml`, `scan`, `annotate`), the
+seconds of its span `remmax.<phase>` (`core.spans`).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from gmat_tpu_torch.config import resolve_device
+from gmat_tpu_torch.core.spans import span
 
 logger = logging.getLogger(__name__)
 
@@ -31,14 +33,16 @@ MODEL_GRMS = {
 
 @contextlib.contextmanager
 def phase_timer(name: str, record: dict | None = None):
-    """Wall and CPU time around a pipeline phase, logged and, with
-    `record`, stored as record[name] (wall seconds)."""
-    t0, c0 = time.perf_counter(), time.process_time()
-    yield
-    dt, dc = time.perf_counter() - t0, time.process_time() - c0
-    logger.info("%s: clock %.3fs, cpu %.3fs", name, dt, dc)
+    """A span `remmax.<name>` around a pipeline phase; its wall seconds and
+    the process's CPU seconds are logged and, with `record`, the wall
+    seconds stored as record[name]."""
+    c0 = time.process_time()
+    with span(f"remmax.{name}", timed=True) as s:
+        yield
+    dc = time.process_time() - c0
+    logger.info("%s: clock %.3fs, cpu %.3fs", name, s.seconds, dc)
     if record is not None:
-        record[name] = dt
+        record[name] = s.seconds
 
 
 @dataclass
@@ -98,6 +102,7 @@ def remmax(pheno_file: str, bed_prefix: str, out_prefix: str = "remmax",
     scan: 'epiAA' | 'epiAD' | 'epiDD' exact scans, the '*_approx' /
         '*_maf_approx' screen pipelines, or 'add' / 'dom' single-SNP tests.
     resume: reuse `<out>.var` when it exists.
+    Spans: the root `remmax`, a span `remmax.<phase>` per phase.
     """
     from gmat_tpu_torch.reml.wemai import wemai_multi_gmat
     from gmat_tpu_torch.scan import pairs as pairs_mod
@@ -105,43 +110,44 @@ def remmax(pheno_file: str, bed_prefix: str, out_prefix: str = "remmax",
     from gmat_tpu_torch.scan import single as single_mod
     from gmat_tpu_torch.scan.annotation import annotation_snp_pos
 
-    dev = resolve_device(device)
-    timings: dict = {}
-    with phase_timer("grm", timings):
-        mats = grm_products(MODEL_GRMS[model], bed_prefix, dev)
+    with span("remmax", root=True):
+        dev = resolve_device(device)
+        timings: dict = {}
+        with phase_timer("grm", timings):
+            mats = grm_products(MODEL_GRMS[model], bed_prefix, dev)
 
-    var_file = out_prefix + ".var"
-    if resume and os.path.exists(var_file):
-        logger.info("resuming: reusing %s", var_file)
-        var_com = np.loadtxt(var_file)
-        timings["reml"] = 0.0
-    else:
-        with phase_timer("reml", timings):
-            var_com = wemai_multi_gmat(pheno_file, bed_prefix, mats,
-                                       maxiter=maxiter, out_file=var_file,
-                                       device=dev)
-
-    scan_file = out_prefix + ".scan"
-    with phase_timer("scan", timings):
-        if scan in ("add", "dom"):
-            fn = getattr(single_mod, f"remma_{scan}")
-            fn(pheno_file, bed_prefix, mats, var_com, out_file=scan_file,
-               device=dev)
-        elif scan.endswith("approx"):
-            fn = getattr(screen_mod, f"remma_{scan}")
-            fn(pheno_file, bed_prefix, mats, var_com, p_cut=p_cut,
-               num_random_pair=num_random_pair, out_file=scan_file,
-               seed=seed, device=dev)
+        var_file = out_prefix + ".var"
+        if resume and os.path.exists(var_file):
+            logger.info("resuming: reusing %s", var_file)
+            var_com = np.loadtxt(var_file)
+            timings["reml"] = 0.0
         else:
-            fn = getattr(pairs_mod, f"remma_{scan}")
-            fn(pheno_file, bed_prefix, mats, var_com, p_cut=p_cut,
-               out_file=scan_file, device=dev)
+            with phase_timer("reml", timings):
+                var_com = wemai_multi_gmat(pheno_file, bed_prefix, mats,
+                                           maxiter=maxiter, out_file=var_file,
+                                           device=dev)
 
-    with phase_timer("annotate", timings):
-        if scan not in ("add", "dom"):
-            annotation_snp_pos(scan_file, bed_prefix, p_cut=p_cut, dis=dis)
+        scan_file = out_prefix + ".scan"
+        with phase_timer("scan", timings):
+            if scan in ("add", "dom"):
+                fn = getattr(single_mod, f"remma_{scan}")
+                fn(pheno_file, bed_prefix, mats, var_com, out_file=scan_file,
+                   device=dev)
+            elif scan.endswith("approx"):
+                fn = getattr(screen_mod, f"remma_{scan}")
+                fn(pheno_file, bed_prefix, mats, var_com, p_cut=p_cut,
+                   num_random_pair=num_random_pair, out_file=scan_file,
+                   seed=seed, device=dev)
+            else:
+                fn = getattr(pairs_mod, f"remma_{scan}")
+                fn(pheno_file, bed_prefix, mats, var_com, p_cut=p_cut,
+                   out_file=scan_file, device=dev)
 
-    with open(out_prefix + ".timings.json", "w") as f:
-        json.dump(timings, f)
+        with phase_timer("annotate", timings):
+            if scan not in ("add", "dom"):
+                annotation_snp_pos(scan_file, bed_prefix, p_cut=p_cut, dis=dis)
+
+        with open(out_prefix + ".timings.json", "w") as f:
+            json.dump(timings, f)
     return RemmaxResult(var_com=var_com, out_prefix=out_prefix,
                         timings=timings)

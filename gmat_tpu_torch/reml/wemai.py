@@ -26,6 +26,7 @@ import torch
 from gmat_tpu_torch.config import EXACT_DTYPE, resolve_device
 from gmat_tpu_torch.core.linalg import (chol_inv_logdet, projection_pieces,
                                          weighted_ai_step)
+from gmat_tpu_torch.core.spans import span
 from gmat_tpu_torch.io.pheno import (DesignMatrices, design_matrix,
                                      design_matrix_pred)
 
@@ -88,7 +89,12 @@ def _check_precision(precision: str) -> None:
 def wemai_reml(dm: DesignMatrices, gmat_lst, init=None, maxiter: int = 200,
                cc_par: float = 1.0e-8, cc_gra: float = 1.0e-6,
                precision: str = "auto", device=None):
-    """Core REML driver; returns the converged variance-component vector."""
+    """Core REML driver; returns the converged variance-component vector.
+
+    Spans: `reml.zgzt` (the GRMs to the device) and `reml.iterate` (the
+    loop, counting `iterations` and `at_limit`, 1 where it stopped at
+    `maxiter` unconverged).  A round's INFO line reads -2logL and the
+    weight from the device only where that line is logged."""
     _check_precision(precision)
     dev = resolve_device(device)
     k = len(gmat_lst)
@@ -96,22 +102,30 @@ def wemai_reml(dm: DesignMatrices, gmat_lst, init=None, maxiter: int = 200,
                else np.ones(k + 1))
     y = torch.as_tensor(dm.y, dtype=EXACT_DTYPE, device=dev)
     xmat = torch.as_tensor(dm.xmat, dtype=EXACT_DTYPE, device=dev)
-    zg = build_zgzt_stack(dm, gmat_lst, dev)
+    with span("reml.zgzt"):
+        zg = build_zgzt_stack(dm, gmat_lst, dev)
     logger.info("Initial variances: %s", " ".join(map(str, var_com)))
     converged = False
-    for it in range(1, maxiter + 1):
-        var_new, ll_val, ccp, ccg, weight = _reml_step(
-            torch.as_tensor(var_com, device=dev), y, xmat, zg)
-        var_com = var_new.cpu().numpy()
-        ccp, ccg = float(ccp), float(ccg)
-        logger.info(
-            "Round %d: -2logL %.6f | grad %.3e | update %.3e | weight %.2f | vars %s",
-            it, float(ll_val), ccg, ccp, float(weight),
-            " ".join(f"{v:.6g}" for v in var_com),
-        )
-        if ccg < cc_gra and ccp < cc_par:
-            converged = True
-            break
+    with span("reml.iterate") as s:
+        it = 0
+        while it < maxiter:
+            it += 1
+            var_new, ll_val, ccp, ccg, weight = _reml_step(
+                torch.as_tensor(var_com, device=dev), y, xmat, zg)
+            var_com = var_new.cpu().numpy()
+            ccp, ccg = float(ccp), float(ccg)
+            if logger.isEnabledFor(logging.INFO):
+                logger.info(
+                    "Round %d: -2logL %.6f | grad %.3e | update %.3e | "
+                    "weight %.2f | vars %s",
+                    it, float(ll_val), ccg, ccp, float(weight),
+                    " ".join(f"{v:.6g}" for v in var_com),
+                )
+            if ccg < cc_gra and ccp < cc_par:
+                converged = True
+                break
+        s.count("iterations", it)
+        s.count("at_limit", int(not converged))
     logger.info("Variances %sconverged.", "" if converged else "not ")
     return var_com
 
@@ -121,13 +135,18 @@ def wemai_multi_gmat(pheno_file: str, bed_prefix: str, gmat_lst, init=None,
                      cc_gra: float = 1.0e-6,
                      out_file: str = "wemai_multi_gmat.var",
                      precision: str = "auto", device=None):
-    """File-level wrapper; writes the variance vector with np.savetxt."""
+    """File-level wrapper; writes the variance vector with np.savetxt.
+    Spans: the root `reml`, and under it `reml.parse` (the design) and
+    `reml.write` besides `wemai_reml`'s."""
     _check_precision(precision)
-    dm = design_matrix(pheno_file, bed_prefix)
-    var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
-                         cc_par=cc_par, cc_gra=cc_gra, precision=precision,
-                         device=device)
-    np.savetxt(out_file, var_com)
+    with span("reml", root=True):
+        with span("reml.parse"):
+            dm = design_matrix(pheno_file, bed_prefix)
+        var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
+                             cc_par=cc_par, cc_gra=cc_gra,
+                             precision=precision, device=device)
+        with span("reml.write"):
+            np.savetxt(out_file, var_com)
     return var_com
 
 
@@ -157,20 +176,24 @@ def wemai_multi_gmat_pred(pheno_file: str, bed_prefix: str, gmat_lst,
     the REML and the BLUPs in float64 (see the module docstring)."""
     _check_precision(precision)
     dev = resolve_device(device)
-    dm = design_matrix_pred(pheno_file, bed_prefix)
-    var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
-                         cc_par=cc_par, cc_gra=cc_gra, precision=precision,
-                         device=dev)
-    np.savetxt(out_file + ".var", var_com)
-    rand_eff = _blup_effects(
-        torch.as_tensor(var_com, device=dev),
-        torch.as_tensor(dm.y, dtype=EXACT_DTYPE, device=dev),
-        torch.as_tensor(dm.xmat, dtype=EXACT_DTYPE, device=dev),
-        build_zgzt_stack(dm, gmat_lst, dev),
-        torch.stack([torch.as_tensor(g, dtype=EXACT_DTYPE, device=dev)
-                     for g in gmat_lst]),
-        dm.rec_index(dev),
-        dm.n_col,
-    )
-    np.savetxt(out_file + ".rand_eff", rand_eff.cpu().numpy())
+    with span("reml", root=True):
+        with span("reml.parse"):
+            dm = design_matrix_pred(pheno_file, bed_prefix)
+        var_com = wemai_reml(dm, gmat_lst, init=init, maxiter=maxiter,
+                             cc_par=cc_par, cc_gra=cc_gra,
+                             precision=precision, device=dev)
+        with span("reml.write"):
+            np.savetxt(out_file + ".var", var_com)
+        rand_eff = _blup_effects(
+            torch.as_tensor(var_com, device=dev),
+            torch.as_tensor(dm.y, dtype=EXACT_DTYPE, device=dev),
+            torch.as_tensor(dm.xmat, dtype=EXACT_DTYPE, device=dev),
+            build_zgzt_stack(dm, gmat_lst, dev),
+            torch.stack([torch.as_tensor(g, dtype=EXACT_DTYPE, device=dev)
+                         for g in gmat_lst]),
+            dm.rec_index(dev),
+            dm.n_col,
+        )
+        with span("reml.write"):
+            np.savetxt(out_file + ".rand_eff", rand_eff.cpu().numpy())
     return var_com

@@ -22,6 +22,7 @@ import torch
 
 from gmat_tpu_torch.config import EXACT_DTYPE, resolve_device
 from gmat_tpu_torch.core.linalg import chol_inv_logdet, projection_pieces
+from gmat_tpu_torch.core.spans import count, span
 from gmat_tpu_torch.io.pheno import DesignMatrices
 from gmat_tpu_torch.reml.wemai import _vmat, build_zgzt_stack
 
@@ -104,11 +105,12 @@ def score_pieces_cached(dm: DesignMatrices, gmat_lst, var_com,
         return ent[2]
     src = next((e[2] for d, e in _PIECES_CACHE.items()
                 if d.type == dev.type and same(e)), None)
-    if src is None:
-        pieces = score_pieces(dm, gmat_lst, var_com, dev)
-    else:
-        pieces = ScorePieces(pymat=src.pymat.to(dev),
-                             pvpmat=src.pvpmat.to(dev))
+    with span("pieces"):
+        if src is None:
+            pieces = score_pieces(dm, gmat_lst, var_com, dev)
+        else:
+            pieces = ScorePieces(pymat=src.pymat.to(dev),
+                                 pvpmat=src.pvpmat.to(dev))
     _PIECES_CACHE[dev] = (key, (dm, tuple(gmat_lst)), pieces)
     return pieces
 
@@ -126,7 +128,8 @@ def design_matrix_cached(pheno_file: str, bed_prefix: str) -> DesignMatrices:
     ent = _DM_CACHE.get("ent")
     if ent is not None and ent[0] == key:
         return ent[1]
-    dm = design_matrix(pheno_file, bed_prefix)
+    with span("design.parse"):
+        dm = design_matrix(pheno_file, bed_prefix)
     _DM_CACHE["ent"] = (key, dm)
     return dm
 
@@ -171,34 +174,43 @@ def prepare_genotypes_device(bed_prefix: str, impute_seed: int = 0,
     A panel without missing genotypes (checked from the packed bytes with a
     256-entry table) crosses to the device as packed 2-bit codes and is
     unpacked there; one with missing genotypes is imputed on the host and
-    uploaded dense.  Returns (geno_device (n, m) float64, num_snp)."""
+    uploaded dense; a miss is a span `geno.upload` that counts the bytes
+    sent in `h2d_bytes`.  Returns (geno_device (n, m) float64, num_snp)."""
     dev = _slot(device)
     key = (str(bed_prefix), os.path.getmtime(str(bed_prefix) + ".bed"),
            impute_seed)
     ent = _DEVICE_GENO_CACHE.get(dev)
     if ent is None or ent[0] != key:
-        from gmat_tpu_torch.io.bed import Bed
-
-        bed = Bed(bed_prefix)
-        raw = bed.read_raw()
-        # trailing pad bits in the last byte per SNP can read as the
-        # missing code in foreign files; check full bytes by table and the
-        # tail explicitly
-        n_full = bed.num_id // 4
-        has_missing = bool(_MISSING_BYTE_LUT[raw[:, :n_full]].any())
-        if not has_missing and n_full < raw.shape[1]:
-            tail = raw[:, n_full]
-            for s in range(0, 2 * (bed.num_id - 4 * n_full), 2):
-                has_missing |= bool((((tail >> s) & 3) == 1).any())
-        if has_missing:
-            geno, _, _ = prepare_genotypes(bed_prefix, impute_seed)
-            dev_geno = torch.as_tensor(geno, dtype=EXACT_DTYPE, device=dev)
-        else:
-            dev_geno = _unpack_f64_device(torch.as_tensor(raw, device=dev),
-                                          bed.num_id)
+        with span("geno.upload"):
+            ent = _DEVICE_GENO_CACHE[dev] = (key, _upload_panel(
+                bed_prefix, impute_seed, dev))
         _CODING_CACHE.pop(dev, None)
-        ent = _DEVICE_GENO_CACHE[dev] = (key, dev_geno)
     return ent[1], ent[1].shape[1]
+
+
+def _upload_panel(bed_prefix, impute_seed, dev):
+    """The (n, m) float64 panel of `bed_prefix` on `dev`: packed codes
+    unpacked there, or, with missing genotypes, imputed on the host."""
+    from gmat_tpu_torch.io.bed import Bed
+
+    bed = Bed(bed_prefix)
+    raw = bed.read_raw()
+    # trailing pad bits in the last byte per SNP can read as the
+    # missing code in foreign files; check full bytes by table and the
+    # tail explicitly
+    n_full = bed.num_id // 4
+    has_missing = bool(_MISSING_BYTE_LUT[raw[:, :n_full]].any())
+    if not has_missing and n_full < raw.shape[1]:
+        tail = raw[:, n_full]
+        for s in range(0, 2 * (bed.num_id - 4 * n_full), 2):
+            has_missing |= bool((((tail >> s) & 3) == 1).any())
+    if has_missing:
+        geno, _, _ = prepare_genotypes(bed_prefix, impute_seed)
+        count("h2d_bytes", geno.nbytes)
+        return torch.as_tensor(geno, dtype=EXACT_DTYPE, device=dev)
+    count("h2d_bytes", raw.nbytes)
+    return _unpack_f64_device(torch.as_tensor(raw, device=dev),
+                              bed.num_id)
 
 
 _CODING_CACHE: dict = {}  # device -> (panel, {(kind, dtype): coding})

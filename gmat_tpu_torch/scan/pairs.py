@@ -24,7 +24,6 @@ device's run, so the files are the same bytes.
 from __future__ import annotations
 
 import logging
-import time
 
 import numpy as np
 import pandas as pd
@@ -33,6 +32,7 @@ import torch
 from gmat_tpu_torch.config import resolve_device
 from gmat_tpu_torch.core.coding import additive_code, dominance_code
 from gmat_tpu_torch.core.roofline import log_phase, maybe_trace
+from gmat_tpu_torch.core.spans import span
 from gmat_tpu_torch.core.stats import chi2_isf, chi2_sf
 from gmat_tpu_torch.dist.mesh import (_gather_rows, _map_shards, _replica,
                                       _replicate)
@@ -99,10 +99,12 @@ def _remma_epi_pair(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                     snp_pair_file, max_test_pair, p_cut, out_file,
                     mesh=None, device=None):
     """Exact test for an explicit pair list, chunked max_test_pair at a time."""
-    mat0, mat1, pieces, num_snp, _ = _epi_setup(
-        pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=mesh, device=device)
-    return _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file,
-                      max_test_pair, p_cut, out_file, mesh)
+    with span("pair", root=True):
+        mat0, mat1, pieces, num_snp, _ = _epi_setup(
+            pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=mesh,
+            device=device)
+        return _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file,
+                          max_test_pair, p_cut, out_file, mesh)
 
 
 def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
@@ -110,14 +112,18 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
     """The pairs of `snp_pair_file` (header line, then `snp_0 snp_1 ...`)
     through `_pair_kernel`, rows with p < p_cut written to `out_file`.
     With `mesh` (mat0, mat1 and pieces then as `_epi_setup` gives them),
-    each step hands one chunk to each shard."""
-    try:
-        pairs = pd.read_csv(snp_pair_file, sep=r"\s+", usecols=[0, 1],
-                            skiprows=1, header=None).to_numpy(dtype=np.int64)
-    except pd.errors.EmptyDataError:
-        # header-only pair file: a screen with zero survivors gives an
-        # empty (header-only) result
-        pairs = np.empty((0, 2), dtype=np.int64)
+    each step hands one chunk to each shard.  Spans: `pairs.read`,
+    `pairs.test` (a chunk through the kernel and back to the host, counting
+    `pairs`) and `pairs.write` (a step's rows)."""
+    with span("pairs.read"):
+        try:
+            pairs = pd.read_csv(snp_pair_file, sep=r"\s+", usecols=[0, 1],
+                                skiprows=1,
+                                header=None).to_numpy(dtype=np.int64)
+        except pd.errors.EmptyDataError:
+            # header-only pair file: a screen with zero survivors gives an
+            # empty (header-only) result
+            pairs = np.empty((0, 2), dtype=np.int64)
     if pairs.size and (pairs.max() > num_snp - 1 or pairs.min() < 0):
         raise ValueError("snp_pair is out of range!")
     # one canonical chunk width for every chunk of a call: the batch width
@@ -133,13 +139,15 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
         if not len(chunk):
             empty = np.empty(0)
             return chunk[:, 0], chunk[:, 1], empty, empty, empty, empty
-        cpad = np.concatenate(
-            [chunk, np.repeat(chunk[-1:], width - len(chunk), 0)])
-        cpad_d = torch.as_tensor(cpad, device=dev)
-        pc = _replica(pieces, dev)
-        outs = _pair_kernel(cpad_d[:, 0], cpad_d[:, 1], _replica(mat0, dev),
-                            _replica(mat1, dev), pc.pymat, pc.pvpmat)
-        eff, var, chi, p = (a[: len(chunk)].cpu().numpy() for a in outs)
+        with span("pairs.test", pairs=len(chunk)):
+            cpad = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], width - len(chunk), 0)])
+            cpad_d = torch.as_tensor(cpad, device=dev)
+            pc = _replica(pieces, dev)
+            outs = _pair_kernel(cpad_d[:, 0], cpad_d[:, 1],
+                                _replica(mat0, dev), _replica(mat1, dev),
+                                pc.pymat, pc.pvpmat)
+            eff, var, chi, p = (a[: len(chunk)].cpu().numpy() for a in outs)
         keep = p < p_cut
         return (chunk[keep, 0], chunk[keep, 1], eff[keep], var[keep],
                 chi[keep], p[keep])
@@ -153,9 +161,10 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
             else:
                 rows = _gather_rows(mesh, _map_shards(
                     mesh, shard, [chunks[k] for k in mesh.shard_ids]))
-            for cols in rows:
-                pd.DataFrame(dict(enumerate(cols))).to_csv(
-                    fout, sep=" ", header=False, index=False)
+            with span("pairs.write"):
+                for cols in rows:
+                    pd.DataFrame(dict(enumerate(cols))).to_csv(
+                        fout, sep=" ", header=False, index=False)
     return 0
 
 
@@ -226,9 +235,12 @@ def _scan_anchors(mat0, mat1, pieces, snp_lst_0, num_snp, triangular, p_cut,
     The anchors go in runs of at most `_SCAN_PAIR_BUDGET` pairs, one run
     per shard and round with `mesh` (mat0, mat1 and pieces then as
     `_epi_setup` gives them), written in list order.  Traced under
-    "exact_scan" (`maybe_trace`); the roofline line counts the least
-    FLOP of a pair, n² + 7n for a symmetric pvpmat (the JAX package's
-    counts 2n² + 4n, the whole product P·e)."""
+    "exact_scan" (`maybe_trace`).  Spans: `exact.scan` around the runs,
+    whose seconds the log lines read, and under it `exact.kernel` (a run
+    through K2 and its hits to the host, counting `pairs` and `hits`) and
+    `exact.write` (a round's rows and their p).  The roofline line counts
+    the least FLOP of a pair, n² + 7n for a symmetric pvpmat (the JAX
+    package's counts 2n² + 4n, the whole product P·e)."""
     with maybe_trace("exact_scan"):
         return _scan_anchors_impl(mat0, mat1, pieces, snp_lst_0, num_snp,
                                   triangular, p_cut, out_file, center, mesh)
@@ -245,36 +257,43 @@ def _scan_anchors_impl(mat0, mat1, pieces, snp_lst_0, num_snp, triangular,
     mask = "tri" if triangular else "rect"
     per = pairs_per_anchor(torch.from_numpy(anchors), num_snp, mask).numpy()
     runs = list(_anchor_runs(anchors, per, _SCAN_PAIR_BUDGET))
+    cuts = np.cumsum([0] + [len(run) for run in runs])
+    runs = [(run, int(per[a:b].sum()))
+            for run, a, b in zip(runs, cuts, cuts[1:])]
     n_shards = 1 if mesh is None else mesh.size
-    clock_t0 = time.perf_counter()
 
-    def shard(dev, run):
+    def shard(dev, share):
+        run, n_run = share
         if not len(run):
             empty = np.empty(0)
             return run, run, empty, empty
-        pc = _replica(pieces, dev)
-        i, j, eff, _, chi = (t.cpu().numpy() for t in exact_hits(
-            _replica(mat0, dev), _replica(mat1, dev), pc.pymat, pc.pvpmat,
-            torch.as_tensor(run, device=dev), chi_crit, mask, center))
+        with span("exact.kernel", pairs=n_run) as s:
+            pc = _replica(pieces, dev)
+            i, j, eff, _, chi = (t.cpu().numpy() for t in exact_hits(
+                _replica(mat0, dev), _replica(mat1, dev), pc.pymat,
+                pc.pvpmat, torch.as_tensor(run, device=dev), chi_crit, mask,
+                center))
+            s.count("hits", len(i))
         return i, j, eff, chi
 
     n_hits = 0
-    with open(out_file, "a") as fout:
+    with span("exact.scan", timed=True) as scan, open(out_file, "a") as fout:
         for r0 in range(0, len(runs), n_shards):
             group = runs[r0:r0 + n_shards]
-            group += [anchors[:0]] * (n_shards - len(group))
+            group += [(anchors[:0], 0)] * (n_shards - len(group))
             if mesh is None:
                 parts = [shard(mat0.device, group[0])]
             else:
                 parts = _gather_rows(mesh, _map_shards(
                     mesh, shard, [group[k] for k in mesh.shard_ids]))
-            for i, j, eff, chi in parts:
-                n_hits += len(i)
-                pd.DataFrame({0: i, 1: j, 2: eff, 3: chi,
-                              4: _chi2_sf_host(chi)}
-                             ).to_csv(fout, sep=" ", header=False,
-                                      index=False)
-    dt = time.perf_counter() - clock_t0
+            with span("exact.write"):
+                for i, j, eff, chi in parts:
+                    n_hits += len(i)
+                    pd.DataFrame({0: i, 1: j, 2: eff, 3: chi,
+                                  4: _chi2_sf_host(chi)}
+                                 ).to_csv(fout, sep=" ", header=False,
+                                          index=False)
+    dt = scan.seconds
     n_pairs = int(per.sum())
     logger.info("Exact scan: %d anchors, %d tests, %d hits in %.3f s "
                 "(%.3g pairs/s)", len(anchors), n_pairs, n_hits, dt,
@@ -298,14 +317,17 @@ def _remma_epi(kind, pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0,
                p_cut, out_file, mesh=None, device=None):
     from gmat_tpu_torch.scan.common import design_matrix_cached
 
-    mat0, mat1, pieces, num_snp, triangular = _epi_setup(
-        pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=mesh, device=device)
-    snp_lst_0 = _validate_anchors(snp_lst_0, num_snp, triangular)
-    # the design is cached: this is the object _epi_setup parsed
-    dm = design_matrix_cached(pheno_file, bed_prefix)
-    return _scan_anchors(mat0, mat1, pieces, snp_lst_0, num_snp, triangular,
-                         p_cut, out_file, center=_has_intercept(dm),
-                         mesh=mesh)
+    with span("exact", root=True):
+        with span("exact.setup"):
+            mat0, mat1, pieces, num_snp, triangular = _epi_setup(
+                pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=mesh,
+                device=device)
+        snp_lst_0 = _validate_anchors(snp_lst_0, num_snp, triangular)
+        # the design is cached: this is the object _epi_setup parsed
+        dm = design_matrix_cached(pheno_file, bed_prefix)
+        return _scan_anchors(mat0, mat1, pieces, snp_lst_0, num_snp,
+                             triangular, p_cut, out_file,
+                             center=_has_intercept(dm), mesh=mesh)
 
 
 def remma_epiAA(pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0=None,

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from gmat_tpu_torch.core.spans import span
+
 
 def _sample_pairs(num_snp, num_pair, num_each_pair, ordered, seed):
     cap = num_snp * (num_snp - 1) * (1 if ordered else 0.5)
@@ -31,7 +33,9 @@ def _sample_pairs(num_snp, num_pair, num_each_pair, ordered, seed):
 
 
 def _write(pairs, out_file):
-    np.savetxt(out_file, pairs, fmt="%d", header="snp_0 snp_1", comments="")
+    with span("draw.write"):
+        np.savetxt(out_file, pairs, fmt="%d", header="snp_0 snp_1",
+                   comments="")
     return pairs
 
 

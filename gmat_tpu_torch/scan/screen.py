@@ -31,7 +31,6 @@ from __future__ import annotations
 
 import logging
 import os
-import time
 
 import numpy as np
 import pandas as pd
@@ -39,6 +38,7 @@ import torch
 
 from gmat_tpu_torch.config import SCREEN_DTYPE, resolve_device
 from gmat_tpu_torch.core.roofline import log_phase, maybe_trace
+from gmat_tpu_torch.core.spans import count, span
 from gmat_tpu_torch.core.stats import chi2_isf
 from gmat_tpu_torch.dist.mesh import (_any_replica, _gather_rows,
                                       _map_shards, _replica, _replicate)
@@ -65,20 +65,28 @@ def _run_screen(a_mat, b_mat, pymat, anchors, bins_a, bins_b, table,
     With `mesh`, position k of the anchor list goes to shard k mod D and
     the shards' rows merge on (position, partner); a_mat, b_mat and pymat
     are then tensors on the shards' one device or {device: tensor} maps
-    from `dist.mesh._replicate`.  Traced under "screen" (`maybe_trace`)."""
-    with maybe_trace("screen"):
-        return _run_screen_impl(a_mat, b_mat, pymat, anchors, bins_a, bins_b,
-                                table, flip_output, mesh)
+    from `dist.mesh._replicate`.  Traced under "screen" (`maybe_trace`);
+    a span `screen.run` whose seconds the roofline line reads.  Its
+    `pairs` and `hits` count into the span that called it (`screen.sweep`,
+    which sums an AD sweep's two runs)."""
+    with maybe_trace("screen"), span("screen.run", timed=True) as s:
+        i, j, eff, pairs = _run_screen_impl(a_mat, b_mat, pymat, anchors,
+                                            bins_a, bins_b, table, mesh)
+    n = _any_replica(a_mat).shape[0]
+    log_phase("screen", 2.0 * n * pairs, s.seconds, items=pairs)
+    count("pairs", pairs)
+    count("hits", len(i))
+    return (j, i, eff) if flip_output else (i, j, eff)
 
 
 def _run_screen_impl(a_mat, b_mat, pymat, anchors, bins_a, bins_b, table,
-                     flip_output, mesh):
-    t0 = time.perf_counter()
+                     mesh):
+    """(i, j, eff, pairs screened) of `_run_screen`, unflipped."""
     table = np.asarray(table, dtype=np.float32) * np.float32(
         1.0 - _screen_slack())
     anchors = np.asarray(list(anchors), dtype=np.int64)
     n_shards = 1 if mesh is None else mesh.size
-    n, m = _any_replica(a_mat).shape[0], _any_replica(b_mat).shape[1]
+    m = _any_replica(b_mat).shape[1]
 
     def shard(dev, k):
         pos = np.arange(k, len(anchors), n_shards)
@@ -107,11 +115,7 @@ def _run_screen_impl(a_mat, b_mat, pymat, anchors, bins_a, bins_b, table,
     if mesh is not None:
         order = np.argsort(pos * m + j, kind="stable")
         pos, j, eff = pos[order], j[order], eff[order]
-    i = anchors[pos]
-    pairs = float(np.maximum(m - 1 - anchors, 0).sum())
-    log_phase("screen", 2.0 * n * pairs, time.perf_counter() - t0,
-              items=pairs)
-    return (j, i, eff) if flip_output else (i, j, eff)
+    return anchors[pos], j, eff, int(np.maximum(m - 1 - anchors, 0).sum())
 
 
 def _maf_bins(geno):
@@ -130,16 +134,14 @@ def _het_bins(geno):
 
 
 def _write_screen(out_file, idx0, idx1, eff):
-    t0 = time.perf_counter()
-    with open(out_file, "w") as f:
+    with span("screen.write", timed=True) as s, open(out_file, "w") as f:
         f.write("snp_0 snp_1 eff\n")
-        for s in range(0, len(idx0), 1 << 22):
-            pd.DataFrame({0: idx0[s:s + (1 << 22)],
-                          1: idx1[s:s + (1 << 22)],
-                          2: eff[s:s + (1 << 22)]}).to_csv(
+        for k in range(0, len(idx0), 1 << 22):
+            pd.DataFrame({0: idx0[k:k + (1 << 22)],
+                          1: idx1[k:k + (1 << 22)],
+                          2: eff[k:k + (1 << 22)]}).to_csv(
                 f, sep=" ", header=False, index=False, float_format="%g")
-    logger.info("Screen write: %d rows in %.3f s", len(idx0),
-                time.perf_counter() - t0)
+    logger.info("Screen write: %d rows in %.3f s", len(idx0), s.seconds)
 
 
 def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
@@ -161,7 +163,6 @@ def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 
     if dm is None:
         dm = design_matrix_cached(pheno_file, bed_prefix)
-    t0 = time.perf_counter()
 
     def setup(dev):
         pieces = score_pieces_cached(dm, gmat_lst, var_com, dev)
@@ -170,15 +171,16 @@ def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                 coded_matrix(g, "dom", SCREEN_DTYPE) if kind != "AA" else None,
                 pieces.pymat.to(SCREEN_DTYPE).contiguous())
 
-    if mesh is None:
-        a_full, d_full, py = setup(resolve_device(device))
-    else:
-        reps = _replicate(mesh, setup)
-        a_full, d_full, py = ({dev: r[k] for dev, r in reps.items()}
-                              for k in range(3))
+    with span("screen.setup", timed=True) as s:
+        if mesh is None:
+            a_full, d_full, py = setup(resolve_device(device))
+        else:
+            reps = _replicate(mesh, setup)
+            a_full, d_full, py = ({dev: r[k] for dev, r in reps.items()}
+                                  for k in range(3))
     num_snp = _any_replica(a_full if kind != "DD" else d_full).shape[1]
     logger.info("Screen engine setup (pieces/geno/codings): %.3f s",
-                time.perf_counter() - t0)
+                s.seconds)
     # AA/DD anchors stop at num_snp-2; the plain AD screen anchors over all
     # SNPs (the j > i mask empties the last), the AD *maf* screen stops at
     # num_snp-2 like AA
@@ -190,17 +192,17 @@ def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     anchors = list(snp_lst_0)
     args = (py, anchors, bins_a, bins_b, eff_cut_table)
     kw = {"mesh": mesh}
-    t0 = time.perf_counter()
-    if kind == "AA":
-        res = [_run_screen(a_full, a_full, *args, **kw)]
-    elif kind == "DD":
-        res = [_run_screen(d_full, d_full, *args, **kw)]
-    else:
-        res = [_run_screen(a_full, d_full, *args, **kw),
-               _run_screen(d_full, a_full, *args, flip_output=True, **kw)]
-    idx0, idx1, eff = (np.concatenate(parts) for parts in zip(*res))
+    with span("screen.sweep", timed=True) as s:
+        if kind == "AA":
+            res = [_run_screen(a_full, a_full, *args, **kw)]
+        elif kind == "DD":
+            res = [_run_screen(d_full, d_full, *args, **kw)]
+        else:
+            res = [_run_screen(a_full, d_full, *args, **kw),
+                   _run_screen(d_full, a_full, *args, flip_output=True, **kw)]
+        idx0, idx1, eff = (np.concatenate(parts) for parts in zip(*res))
     logger.info("Screen sweep(s) incl. assembly: %.3f s, %d hits",
-                time.perf_counter() - t0, len(idx0))
+                s.seconds, len(idx0))
     _write_screen(out_file, idx0, idx1, eff)
     return idx0, idx1, eff
 
@@ -212,8 +214,8 @@ def _append_approx_p(screen_file, out_file, bins_a, bins_b, freq_deno):
     reference."""
     from scipy.stats import chi2 as chi2_dist
 
-    t0 = time.perf_counter()
-    with open(screen_file) as fin, open(out_file, "w") as fout:
+    with span("screen.append", timed=True) as s, open(screen_file) as fin, \
+            open(out_file, "w") as fout:
         head = fin.readline().strip()
         fout.write(head + " chi_app p_app\n")
         lines = fin.read().splitlines()
@@ -229,8 +231,7 @@ def _append_approx_p(screen_file, out_file, bins_a, bins_b, freq_deno):
             fout.write("\n".join(
                 " ".join(t + [str(c), str(p)])
                 for t, c, p in zip(toks, chi_app, p_app)) + "\n")
-    logger.info("Approx p append: %d rows in %.3f s", len(lines),
-                time.perf_counter() - t0)
+    logger.info("Approx p append: %d rows in %.3f s", len(lines), s.seconds)
 
 
 def _num_snp(bed_prefix):
@@ -247,11 +248,12 @@ def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     bins = np.zeros(_num_snp(bed_prefix), dtype=np.int64)
     deno = np.full(111, var_app)
     tmp = out_file + ".temp"
-    _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0, table, bins, bins, tmp, dm=dm, device=device,
-                   mesh=mesh)
-    _append_approx_p(tmp, out_file, bins, bins, deno)
-    os.remove(tmp)
+    with span("eff", root=True):
+        _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                       snp_lst_0, table, bins, bins, tmp, dm=dm,
+                       device=device, mesh=mesh)
+        _append_approx_p(tmp, out_file, bins, bins, deno)
+        os.remove(tmp)
     return 0
 
 
@@ -269,11 +271,13 @@ def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
         freq_deno = np.ones(111)
     table = np.sqrt(chi_cut * np.asarray(freq_deno))
     tmp = out_file + ".temp"
-    _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0, table, bins_a, bins_b, tmp, maf=True, dm=dm,
-                   device=device, mesh=mesh)
-    _append_approx_p(tmp, out_file, bins_a, bins_b, np.asarray(freq_deno))
-    os.remove(tmp)
+    with span("eff", root=True):
+        _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                       snp_lst_0, table, bins_a, bins_b, tmp, maf=True, dm=dm,
+                       device=device, mesh=mesh)
+        _append_approx_p(tmp, out_file, bins_a, bins_b,
+                         np.asarray(freq_deno))
+        os.remove(tmp)
     return 0
 
 
@@ -365,7 +369,8 @@ def _merge_approx_exact(approx_file, exact_file, out_file):
 
 
 #: per-stage wall-clock seconds of the most recent approx-pipeline run
-#: (keys: prep, calibrate, screen, retest, merge, total)
+#: (keys: prep, draw, calibrate, screen, retest, merge, total), each the
+#: seconds of its span `approx.<key>` (`approx` for the total)
 LAST_APPROX_STAGES: dict = {}
 
 
@@ -388,43 +393,50 @@ def _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
 def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                      num_random_pair, out_file, seed, screen, device,
                      mesh=None):
-    """prep -> calibrate (the exact test of `num_random_pair` random pairs)
-    -> screen(calibration table, approx file) -> exact re-test of the
-    survivors -> merge, each stage timed into `LAST_APPROX_STAGES`.  With
-    `mesh`, all three device stages run over it (the screen through the
-    `screen` callback)."""
+    """prep -> draw (the `num_random_pair` random pairs) -> calibrate
+    (their exact test) -> screen(calibration table, approx file) -> exact
+    re-test of the survivors -> merge, each stage a span `approx.<stage>`
+    whose seconds go to `LAST_APPROX_STAGES`.  With `mesh`, all three
+    device stages run over it (the screen through the `screen` callback)."""
     stages = {}
-    t_all = time.perf_counter()
-    _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com, mesh=mesh,
-                 device=device)
-    stages["prep"] = time.perf_counter() - t_all
-    logger.info("Random calibration: %d pairs", num_random_pair)
-    rp = out_file + ".random_pair"
-    _random_pair_fn(kind, _num_snp(bed_prefix), rp, num_random_pair, seed)
-    pair_fn = _pair_fn(kind)
-    t0 = time.perf_counter()
-    pair_fn(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file=rp,
-            p_cut=1.1, out_file=out_file + ".random", device=device,
-            mesh=mesh)
-    calib = pd.read_csv(out_file + ".random", header=0, sep=r"\s+")
-    stages["calibrate"] = time.perf_counter() - t0
-    os.remove(rp)
-    os.remove(out_file + ".random")
-    t0 = time.perf_counter()
-    screen(calib, out_file + ".approx_p")
-    stages["screen"] = time.perf_counter() - t0
-    logger.info("Exact re-test of survivors")
-    t0 = time.perf_counter()
-    pair_fn(pheno_file, bed_prefix, gmat_lst, var_com,
-            snp_pair_file=out_file + ".approx_p", p_cut=1.1,
-            out_file=out_file + ".exact_p", device=device, mesh=mesh)
-    stages["retest"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    _merge_approx_exact(out_file + ".approx_p", out_file + ".exact_p", out_file)
-    stages["merge"] = time.perf_counter() - t0
-    os.remove(out_file + ".approx_p")
-    os.remove(out_file + ".exact_p")
-    stages["total"] = time.perf_counter() - t_all
+    with span("approx", root=True, timed=True) as whole:
+        with span("approx.prep", timed=True) as s:
+            _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                         mesh=mesh, device=device)
+        stages["prep"] = s.seconds
+        logger.info("Random calibration: %d pairs", num_random_pair)
+        rp = out_file + ".random_pair"
+        with span("approx.draw", timed=True) as s:
+            _random_pair_fn(kind, _num_snp(bed_prefix), rp, num_random_pair,
+                            seed)
+        stages["draw"] = s.seconds
+        pair_fn = _pair_fn(kind)
+        with span("approx.calibrate", timed=True) as s:
+            pair_fn(pheno_file, bed_prefix, gmat_lst, var_com,
+                    snp_pair_file=rp, p_cut=1.1, out_file=out_file + ".random",
+                    device=device, mesh=mesh)
+            with span("calibrate.read"):
+                calib = pd.read_csv(out_file + ".random", header=0,
+                                    sep=r"\s+")
+        stages["calibrate"] = s.seconds
+        os.remove(rp)
+        os.remove(out_file + ".random")
+        with span("approx.screen", timed=True) as s:
+            screen(calib, out_file + ".approx_p")
+        stages["screen"] = s.seconds
+        logger.info("Exact re-test of survivors")
+        with span("approx.retest", timed=True) as s:
+            pair_fn(pheno_file, bed_prefix, gmat_lst, var_com,
+                    snp_pair_file=out_file + ".approx_p", p_cut=1.1,
+                    out_file=out_file + ".exact_p", device=device, mesh=mesh)
+        stages["retest"] = s.seconds
+        with span("approx.merge", timed=True) as s:
+            _merge_approx_exact(out_file + ".approx_p", out_file + ".exact_p",
+                                out_file)
+        stages["merge"] = s.seconds
+        os.remove(out_file + ".approx_p")
+        os.remove(out_file + ".exact_p")
+    stages["total"] = whole.seconds
     LAST_APPROX_STAGES.clear()
     LAST_APPROX_STAGES.update(stages)
     logger.info("Approx pipeline stages (s): %s",

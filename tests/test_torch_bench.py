@@ -170,7 +170,7 @@ def test_main_prints_one_json_line(monkeypatch, capsys, long_subset):
     assert extra["screen_hits"] == len(bench.LAST_RUN["production"]["i"])
     assert extra["bigpanel_hits"] == len(bench.LAST_RUN["bigpanel"]["i"])
     assert set(extra["yeast_approx_stages"]) == {
-        "prep", "calibrate", "screen", "retest", "merge", "total"}
+        "prep", "draw", "calibrate", "screen", "retest", "merge", "total"}
     assert list(bench.LAST_RUN["sections"]) == [
         "production_screen", "gemm_ceiling", "yeast_screen", "exact_scan",
         "reml_mixed", "bigpanel", "longwas", "yeast_approx"]

@@ -282,8 +282,9 @@ def test_approx_pipelines_match_jax(tmp_path, mouse, mouse_pheno,
     t, j = tmp_path / "t", tmp_path / "j"
     getattr(gmat_tpu_torch, name)(*args, out_file=str(t), device="cpu", **kw)
     getattr(gmat_tpu, name)(*args, out_file=str(j), **kw)
-    assert set(TS.LAST_APPROX_STAGES) == {"prep", "calibrate", "screen",
-                                          "retest", "merge", "total"}
+    assert set(TS.LAST_APPROX_STAGES) == {"prep", "draw", "calibrate",
+                                          "screen", "retest", "merge",
+                                          "total"}
     head = "snp_0 snp_1 eff var chi p_app p\n"
     assert open(t).readline() == open(j).readline() == head
     got, want = _rows(t), _rows(j)
