@@ -28,10 +28,11 @@ from gmat_tpu_torch.io.pheno import DesignMatrices
 from gmat_tpu_torch.scan.common import score_pieces
 from gmat_tpu_torch.scan.pairs import (_HEADER_PAIR, _coded_panels,
                                        _has_intercept, _pair_kernel,
-                                       _pair_test, _scan_anchors,
+                                       _pair_test_file, _scan_anchors,
                                        _validate_anchors,
                                        balanced_anchor_split)
-from gmat_tpu_torch.scan.screen import _num_snp, _screen_engine
+from gmat_tpu_torch.scan.screen import (_num_snp, _screen_engine,
+                                        _write_screen)
 from gmat_tpu_torch.scan.single import _run_single
 
 _BAD_Z = "zmat must be a 0/1 incidence matrix with one 1 per row"
@@ -184,8 +185,8 @@ def _epi_pair_cpu(kind, y, xmat, zmat, gmat_lst, var_com, bed_file,
                   snp_pair_file, max_test_pair, p_cut, out_file, device=None):
     _, pieces, mat0, mat1, m, _ = _dm_setup(
         kind, y, xmat, zmat, gmat_lst, var_com, bed_file, device)
-    return _pair_test(mat0, mat1, pieces, m, snp_pair_file, max_test_pair,
-                      p_cut, out_file)
+    return _pair_test_file(mat0, mat1, pieces, m, snp_pair_file,
+                           max_test_pair, p_cut, out_file)
 
 
 def remma_epiAA_pair_cpu(y, xmat, zmat, gmat_lst, var_com, bed_file,
@@ -223,9 +224,9 @@ def _epi_eff_cpu(kind, y, xmat, zmat, gmat_lst, var_com, bed_file, snp_lst_0,
         snp_lst_0 = range(num_snp - 1)
     table = np.full(111, max(float(eff_cut), 0.0))
     bins = np.zeros(num_snp, dtype=np.int64)
-    _screen_engine(kind, None, bed_file, gmat_lst, var_com, snp_lst_0, table,
-                   bins, bins, out_file, dm=_as_dm(y, xmat, zmat),
-                   device=device)
+    _write_screen(out_file, *_screen_engine(
+        kind, None, bed_file, gmat_lst, var_com, snp_lst_0, table, bins, bins,
+        dm=_as_dm(y, xmat, zmat), device=device))
     return 0
 
 

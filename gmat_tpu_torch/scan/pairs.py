@@ -14,7 +14,8 @@ p = P[χ²₁ > chi], all in float64 on the pieces' device.
   to `f"{out_file}.{part}"`.
 - `remma_epi*_pair`: an explicit pair list, `max_test_pair` pairs at a
   time in chunks padded to one canonical width, written as
-  `snp_0 snp_1 eff var chi p` rows with p < p_cut.
+  `snp_0 snp_1 eff var chi p` rows with p < p_cut; `_pair_test` is its
+  array core, which the approx pipelines call without a file.
 
 With `mesh=` (`dist/`), each round of an exhaustive scan hands one anchor
 run to each shard, and each step of a pair test one chunk of the same
@@ -103,18 +104,15 @@ def _remma_epi_pair(kind, pheno_file, bed_prefix, gmat_lst, var_com,
         mat0, mat1, pieces, num_snp, _ = _epi_setup(
             pheno_file, bed_prefix, gmat_lst, var_com, kind, mesh=mesh,
             device=device)
-        return _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file,
-                          max_test_pair, p_cut, out_file, mesh)
+        return _pair_test_file(mat0, mat1, pieces, num_snp, snp_pair_file,
+                               max_test_pair, p_cut, out_file, mesh)
 
 
-def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
-               p_cut, out_file, mesh=None):
-    """The pairs of `snp_pair_file` (header line, then `snp_0 snp_1 ...`)
-    through `_pair_kernel`, rows with p < p_cut written to `out_file`.
-    With `mesh` (mat0, mat1 and pieces then as `_epi_setup` gives them),
-    each step hands one chunk to each shard.  Spans: `pairs.read`,
-    `pairs.test` (a chunk through the kernel and back to the host, counting
-    `pairs`) and `pairs.write` (a step's rows)."""
+def _pair_test_file(mat0, mat1, pieces, num_snp, snp_pair_file,
+                    max_test_pair, p_cut, out_file, mesh=None):
+    """`_pair_test` from a pair file (header line, then `snp_0 snp_1 ...`)
+    to a `snp_0 snp_1 eff var chi p` file.  Spans `pairs.read` and
+    `pairs.write`."""
     with span("pairs.read"):
         try:
             pairs = pd.read_csv(snp_pair_file, sep=r"\s+", usecols=[0, 1],
@@ -124,6 +122,23 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
             # header-only pair file: a screen with zero survivors gives an
             # empty (header-only) result
             pairs = np.empty((0, 2), dtype=np.int64)
+    rows = _pair_test(mat0, mat1, pieces, num_snp, pairs, max_test_pair,
+                      p_cut, mesh)
+    with span("pairs.write"), open(out_file, "w") as fout:
+        fout.write(_HEADER_PAIR + "\n")
+        pd.DataFrame(dict(enumerate(rows))).to_csv(
+            fout, sep=" ", header=False, index=False)
+    return 0
+
+
+def _pair_test(mat0, mat1, pieces, num_snp, pairs, max_test_pair, p_cut,
+               mesh=None):
+    """The (k, 2) int64 `pairs` through `_pair_kernel`: the columns (i, j,
+    eff, var, chi, p) of the rows with p < p_cut, in the pairs' order.
+    With `mesh` (mat0, mat1 and pieces then as `_epi_setup` gives them),
+    each step hands one chunk to each shard and the rows come in the order
+    of one device's run.  Span `pairs.test`: a chunk through the kernel and
+    back to the host, counting `pairs`."""
     if pairs.size and (pairs.max() > num_snp - 1 or pairs.min() < 0):
         raise ValueError("snp_pair is out of range!")
     # one canonical chunk width for every chunk of a call: the batch width
@@ -132,7 +147,6 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
     if len(pairs):
         width = min(max_test_pair,
                     max(8, 1 << int(len(pairs) - 1).bit_length()))
-    np.savetxt(out_file, [_HEADER_PAIR], fmt="%s")
     n_shards = 1 if mesh is None else mesh.size
 
     def shard(dev, chunk):
@@ -152,20 +166,16 @@ def _pair_test(mat0, mat1, pieces, num_snp, snp_pair_file, max_test_pair,
         return (chunk[keep, 0], chunk[keep, 1], eff[keep], var[keep],
                 chi[keep], p[keep])
 
-    with open(out_file, "a") as fout:
-        for start in range(0, len(pairs), width * n_shards):
-            chunks = [pairs[start + k * width:start + (k + 1) * width]
-                      for k in range(n_shards)]
-            if mesh is None:
-                rows = [shard(mat0.device, chunks[0])]
-            else:
-                rows = _gather_rows(mesh, _map_shards(
-                    mesh, shard, [chunks[k] for k in mesh.shard_ids]))
-            with span("pairs.write"):
-                for cols in rows:
-                    pd.DataFrame(dict(enumerate(cols))).to_csv(
-                        fout, sep=" ", header=False, index=False)
-    return 0
+    rows = [shard(None, pairs[:0])]  # the columns' dtypes when no step runs
+    for start in range(0, len(pairs), width * n_shards):
+        chunks = [pairs[start + k * width:start + (k + 1) * width]
+                  for k in range(n_shards)]
+        if mesh is None:
+            rows.append(shard(mat0.device, chunks[0]))
+        else:
+            rows += _gather_rows(mesh, _map_shards(
+                mesh, shard, [chunks[k] for k in mesh.shard_ids]))
+    return tuple(np.concatenate(col) for col in zip(*rows))
 
 
 def remma_epiAA_pair(pheno_file, bed_prefix, gmat_lst, var_com, snp_pair_file,

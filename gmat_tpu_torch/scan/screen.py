@@ -8,7 +8,9 @@ family and its drivers):
 - `remma_epi{AA,AD,DD}_maf_eff`: the same with per-bin-pair cuts
   eff_cut[bin_i*10 + bin_j], bins = int(maf*20) or int(het_freq*20);
 - `remma_epi{AA,AD,DD}_approx`: random-pair variance calibration (median)
-  -> screen -> exact re-test of the survivors -> merge of approx and exact p;
+  -> screen -> exact re-test of the survivors -> merge of approx and exact p,
+  the stages handing each other arrays and the one table written at the
+  end;
 - `remma_epi{AA,AD,DD}_maf_approx`: per-bin-pair mean variance calibration
   with a global-mean fallback, written beside the table as `.freq` /
   `.heter` / `.maf` and `.freq_denominator`;
@@ -29,6 +31,7 @@ calibration and the re-test chunks likewise (`scan/pairs.py`).
 """
 from __future__ import annotations
 
+import io
 import logging
 import os
 
@@ -145,15 +148,16 @@ def _write_screen(out_file, idx0, idx1, eff):
 
 
 def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                   snp_lst_0, eff_cut_table, bins_a, bins_b, out_file,
-                   maf=False, dm=None, mesh=None, device=None):
+                   snp_lst_0, eff_cut_table, bins_a, bins_b, maf=False,
+                   dm=None, mesh=None, device=None):
     """Shared driver of the *_eff / *_maf_eff family.
 
     eff_cut_table: (111,) per-bin-pair |eff| cuts (flat for the non-MAF
     screens); bins_a / bins_b: (m,) bins of the anchor (table row) and the
     partner (table column), equal except for AD, whose anchor side bins by
     MAF and partner side by heterozygote frequency in BOTH orientations.
-    Writes `snp_0 snp_1 eff` rows and returns the hit arrays.  `dm`
+    Returns the hit arrays (idx0, idx1, eff), rows as a screen file holds
+    them (`_write_screen`).  `dm`
     overrides the phenotype-file parse with a (y, xmat, zmat) design.
     With `mesh`, each sweep runs over its shards, from the per-device
     caches filled here for each of its devices."""
@@ -203,17 +207,32 @@ def _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
         idx0, idx1, eff = (np.concatenate(parts) for parts in zip(*res))
     logger.info("Screen sweep(s) incl. assembly: %.3f s, %d hits",
                 s.seconds, len(idx0))
-    _write_screen(out_file, idx0, idx1, eff)
     return idx0, idx1, eff
 
 
-def _append_approx_p(screen_file, out_file, bins_a, bins_b, freq_deno):
-    """Append chi_app/p_app columns; the denominator is indexed
-    bins_a[snp_0]*10 + bins_b[snp_1] on the WRITTEN row, which for AD's
-    flipped orientation differs from the screen's cut index, as in the
-    reference."""
+def _g_round(eff):
+    """`eff` as a screen file's `%g` text of it reads back: float() of
+    each value's 6 significant digits."""
+    return np.array([float("%g" % e) for e in np.asarray(eff).tolist()],
+                    dtype=np.float64)
+
+
+def _approx_chi_p(i0, i1, eff, bins_a, bins_b, freq_deno):
+    """(chi_app, p_app) of the rows (i0, i1, eff): eff²/deno and its χ²₁
+    survival.  The denominator is indexed bins_a[snp_0]*10 + bins_b[snp_1]
+    on the WRITTEN row, which for AD's flipped orientation differs from the
+    screen's cut index, as in the reference."""
     from scipy.stats import chi2 as chi2_dist
 
+    deno = np.asarray(freq_deno)[
+        np.asarray(bins_a)[i0] * 10 + np.asarray(bins_b)[i1]]
+    chi_app = eff * eff / deno
+    return chi_app, chi2_dist.sf(chi_app, 1)
+
+
+def _append_approx_p(screen_file, out_file, bins_a, bins_b, freq_deno):
+    """The screen file's rows with their `chi_app p_app` columns appended
+    (`_approx_chi_p` of the rows as written)."""
     with span("screen.append", timed=True) as s, open(screen_file) as fin, \
             open(out_file, "w") as fout:
         head = fin.readline().strip()
@@ -224,10 +243,8 @@ def _append_approx_p(screen_file, out_file, bins_a, bins_b, freq_deno):
             i0 = np.array([int(t[0]) for t in toks], dtype=np.int64)
             i1 = np.array([int(t[1]) for t in toks], dtype=np.int64)
             eff = np.array([float(t[-1]) for t in toks])
-            deno = np.asarray(freq_deno)[
-                np.asarray(bins_a)[i0] * 10 + np.asarray(bins_b)[i1]]
-            chi_app = eff * eff / deno
-            p_app = chi2_dist.sf(chi_app, 1)
+            chi_app, p_app = _approx_chi_p(i0, i1, eff, bins_a, bins_b,
+                                           freq_deno)
             fout.write("\n".join(
                 " ".join(t + [str(c), str(p)])
                 for t, c, p in zip(toks, chi_app, p_app)) + "\n")
@@ -240,21 +257,52 @@ def _num_snp(bed_prefix):
     return len(read_bim(bed_prefix + ".bim"))
 
 
+def _flat_cuts(bed_prefix, var_app, p_cut):
+    """(cut table, bins, denominators) of a screen at one approximate
+    variance `var_app`: every bin 0."""
+    table = np.full(111, np.sqrt(chi2_isf(p_cut, 1) * var_app))
+    bins = np.zeros(_num_snp(bed_prefix), dtype=np.int64)
+    return table, bins, np.full(111, var_app)
+
+
+def _eff_file(kind, pheno_file, bed_prefix, gmat_lst, var_com, snp_lst_0,
+              table, bins_a, bins_b, freq_deno, out_file, maf=False, dm=None,
+              mesh=None, device=None):
+    """The screen's hits to `out_file` as `snp_0 snp_1 eff chi_app p_app`:
+    `snp_0 snp_1 eff` (`%g`) to a temporary file, then that file with the
+    approx columns appended."""
+    tmp = out_file + ".temp"
+    with span("eff", root=True):
+        hits = _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                              snp_lst_0, table, bins_a, bins_b, maf=maf,
+                              dm=dm, device=device, mesh=mesh)
+        _write_screen(tmp, *hits)
+        _append_approx_p(tmp, out_file, bins_a, bins_b, freq_deno)
+        os.remove(tmp)
+    return 0
+
+
+def _screen_p_app(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                  snp_lst_0, table, bins_a, bins_b, freq_deno, maf=False,
+                  mesh=None, device=None):
+    """`_eff_file`'s rows without its files: (idx0, idx1, p_app), p_app
+    computed from eff as the `%g` text reads back."""
+    idx0, idx1, eff = _screen_engine(kind, pheno_file, bed_prefix, gmat_lst,
+                                     var_com, snp_lst_0, table, bins_a,
+                                     bins_b, maf=maf, device=device,
+                                     mesh=mesh)
+    _, p_app = _approx_chi_p(idx0, idx1, _g_round(eff), bins_a, bins_b,
+                             freq_deno)
+    return idx0, idx1, p_app
+
+
 def _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                    snp_lst_0=None, var_app=1.0, p_cut=1.0e-5,
                    out_file="epi_eff", dm=None, mesh=None, device=None):
-    chi_cut = chi2_isf(p_cut, 1)
-    table = np.full(111, np.sqrt(chi_cut * var_app))
-    bins = np.zeros(_num_snp(bed_prefix), dtype=np.int64)
-    deno = np.full(111, var_app)
-    tmp = out_file + ".temp"
-    with span("eff", root=True):
-        _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                       snp_lst_0, table, bins, bins, tmp, dm=dm,
-                       device=device, mesh=mesh)
-        _append_approx_p(tmp, out_file, bins, bins, deno)
-        os.remove(tmp)
-    return 0
+    table, bins, deno = _flat_cuts(bed_prefix, var_app, p_cut)
+    return _eff_file(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                     snp_lst_0, table, bins, bins, deno, out_file, dm=dm,
+                     device=device, mesh=mesh)
 
 
 def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
@@ -269,16 +317,11 @@ def _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
         bins_b = np.zeros(num_snp, dtype=np.int64)
     if freq_deno is None:
         freq_deno = np.ones(111)
-    table = np.sqrt(chi_cut * np.asarray(freq_deno))
-    tmp = out_file + ".temp"
-    with span("eff", root=True):
-        _screen_engine(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                       snp_lst_0, table, bins_a, bins_b, tmp, maf=True, dm=dm,
-                       device=device, mesh=mesh)
-        _append_approx_p(tmp, out_file, bins_a, bins_b,
-                         np.asarray(freq_deno))
-        os.remove(tmp)
-    return 0
+    freq_deno = np.asarray(freq_deno)
+    return _eff_file(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                     snp_lst_0, np.sqrt(chi_cut * freq_deno), bins_a, bins_b,
+                     freq_deno, out_file, maf=True, dm=dm, device=device,
+                     mesh=mesh)
 
 
 # public *_eff screens ----------------------------------------------------------
@@ -341,31 +384,56 @@ def remma_epiDD_maf_eff(pheno_file, bed_prefix, gmat_lst, var_com,
 
 # approximate pipelines -------------------------------------------------------
 
-def _pair_fn(kind):
-    from gmat_tpu_torch.scan import pairs as pairs_mod
-
-    return getattr(pairs_mod, f"remma_epi{kind}_pair")
-
-
-def _random_pair_fn(kind, num_snp, out_file, num_pair, seed):
-    from gmat_tpu_torch.scan.random_pair import random_pair, random_pairAD
-
-    fn = random_pairAD if kind == "AD" else random_pair
-    return fn(num_snp, out_file=out_file, num_pair=num_pair, seed=seed)
+#: the pair tests' chunk width (`remma_epi*_pair`'s max_test_pair): one
+#: canonical width fixes the last ulp of var and chi
+_PAIR_WIDTH = 50000
+#: the pair tests' p_cut: every row whose p is not NaN
+_KEEP_ALL = 1.1
+_TABLE_HEADER = "snp_0 snp_1 eff var chi p_app p\n"
 
 
-def _merge_approx_exact(approx_file, exact_file, out_file):
-    """Insert the approx p column before the exact p."""
-    p_dct = {}
-    with open(approx_file) as fin:
-        for line in fin:
-            arr = line.split()
-            p_dct[" ".join(arr[:2])] = arr[-1]
-    with open(exact_file) as fin, open(out_file, "w") as fout:
-        for line in fin:
-            arr = line.split()
-            arr.insert(-1, p_dct[" ".join(arr[:2])])
-            fout.write(" ".join(arr) + "\n")
+def _csv_text(col):
+    """The text `DataFrame.to_csv` writes for each value of a numpy column,
+    as a list: `astype(str)`, NaN as the empty field."""
+    text = col.astype(str)
+    if col.dtype.kind == "f":
+        text[np.isnan(col)] = ""
+    return text.tolist()
+
+
+def _csv_round_trip(x):
+    """float64 `x` as `DataFrame.to_csv` writes it and `read_csv(sep=r"\\s+")`
+    reads it back: the values a pair test's file hands over, which pandas'
+    parser does not always return to the last ulp.  NaN stays NaN (the
+    empty field `to_csv` writes reads back as NaN)."""
+    x = np.asarray(x, dtype=np.float64)
+    out = np.full_like(x, np.nan)
+    ok = ~np.isnan(x)
+    text = "\n".join(["x", *_csv_text(x[ok])])
+    out[ok] = pd.read_csv(io.StringIO(text), header=0, sep=r"\s+")[
+        "x"].to_numpy(dtype=np.float64)
+    return out
+
+
+def _write_approx_table(out_file, rows, p_app):
+    """The merged table `snp_0 snp_1 eff var chi p_app p`: the re-test's
+    columns `rows` (i, j, eff, var, chi, p) as `DataFrame.to_csv` writes
+    them, p_app as str() of each float64."""
+    i, j, eff, var, chi, p = (_csv_text(c) for c in rows)
+    with open(out_file, "w") as f:
+        f.write(_TABLE_HEADER)
+        if len(i):
+            f.write("\n".join(map(" ".join, zip(
+                i, j, eff, var, chi, p_app.astype(str).tolist(), p))) + "\n")
+
+
+def _p_app_of(idx0, idx1, p_app, i, j):
+    """p_app of each re-tested pair (i, j): that of the last screen row
+    (idx0, idx1) of the pair."""
+    key = idx0 * (1 << 32) + idx1
+    order = np.argsort(key, kind="stable")
+    last = np.searchsorted(key[order], i * (1 << 32) + j, side="right") - 1
+    return p_app[order[last]]
 
 
 #: per-stage wall-clock seconds of the most recent approx-pipeline run
@@ -379,7 +447,7 @@ def _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
     """Warm every cross-stage cache (design parse, score pieces, device
     genotype panel, codings; on each device of `mesh`) and wait for the
     devices, so that the stage timers below measure each stage's own
-    work."""
+    work.  Returns the pair tests' (mat0, mat1, pieces, num_snp)."""
     from gmat_tpu_torch.scan.pairs import _epi_setup
 
     devices = ((resolve_device(device),) if mesh is None
@@ -388,54 +456,61 @@ def _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
         _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+    return _epi_setup(pheno_file, bed_prefix, gmat_lst, var_com, kind,
+                      mesh=mesh, device=device)[:4]
 
 
 def _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                      num_random_pair, out_file, seed, screen, device,
                      mesh=None):
     """prep -> draw (the `num_random_pair` random pairs) -> calibrate
-    (their exact test) -> screen(calibration table, approx file) -> exact
-    re-test of the survivors -> merge, each stage a span `approx.<stage>`
-    whose seconds go to `LAST_APPROX_STAGES`.  With `mesh`, all three
+    (their exact test) -> screen (`screen(calib)`: the hits and their
+    p_app) -> exact re-test of the hits -> merge (the one table written,
+    to `out_file`), each stage a span `approx.<stage>` whose seconds go to
+    `LAST_APPROX_STAGES`.  The stages hand each other arrays; the table's
+    bytes are those of the file pipeline (`remma_epi*_pair` files, the
+    `*_eff` screen file, a line-by-line merge).  With `mesh`, all three
     device stages run over it (the screen through the `screen` callback)."""
+    from gmat_tpu_torch.scan.pairs import _HEADER_PAIR, _pair_test
+    from gmat_tpu_torch.scan.random_pair import _sample_pairs
+
     stages = {}
     with span("approx", root=True, timed=True) as whole:
         with span("approx.prep", timed=True) as s:
-            _approx_prep(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                         mesh=mesh, device=device)
+            mat0, mat1, pieces, num_snp = _approx_prep(
+                kind, pheno_file, bed_prefix, gmat_lst, var_com, mesh=mesh,
+                device=device)
         stages["prep"] = s.seconds
+
+        def pair_test(pairs):
+            return _pair_test(mat0, mat1, pieces, num_snp, pairs, _PAIR_WIDTH,
+                              _KEEP_ALL, mesh)
+
         logger.info("Random calibration: %d pairs", num_random_pair)
-        rp = out_file + ".random_pair"
         with span("approx.draw", timed=True) as s:
-            _random_pair_fn(kind, _num_snp(bed_prefix), rp, num_random_pair,
-                            seed)
+            # 5000: random_pair*'s num_each_pair
+            drawn = _sample_pairs(num_snp, num_random_pair, 5000, kind == "AD",
+                                  seed)
         stages["draw"] = s.seconds
-        pair_fn = _pair_fn(kind)
         with span("approx.calibrate", timed=True) as s:
-            pair_fn(pheno_file, bed_prefix, gmat_lst, var_com,
-                    snp_pair_file=rp, p_cut=1.1, out_file=out_file + ".random",
-                    device=device, mesh=mesh)
-            with span("calibrate.read"):
-                calib = pd.read_csv(out_file + ".random", header=0,
-                                    sep=r"\s+")
+            calib = pd.DataFrame(dict(zip(_HEADER_PAIR.split(),
+                                          pair_test(drawn))))
+            with span("calibrate.var"):
+                calib["var"] = _csv_round_trip(calib["var"])
         stages["calibrate"] = s.seconds
-        os.remove(rp)
-        os.remove(out_file + ".random")
         with span("approx.screen", timed=True) as s:
-            screen(calib, out_file + ".approx_p")
+            idx0, idx1, p_app = screen(calib)
         stages["screen"] = s.seconds
         logger.info("Exact re-test of survivors")
         with span("approx.retest", timed=True) as s:
-            pair_fn(pheno_file, bed_prefix, gmat_lst, var_com,
-                    snp_pair_file=out_file + ".approx_p", p_cut=1.1,
-                    out_file=out_file + ".exact_p", device=device, mesh=mesh)
+            rows = pair_test(np.stack((idx0, idx1), axis=1).astype(np.int64))
         stages["retest"] = s.seconds
-        with span("approx.merge", timed=True) as s:
-            _merge_approx_exact(out_file + ".approx_p", out_file + ".exact_p",
-                                out_file)
+        with span("approx.merge", timed=True, rows=len(rows[0])) as s:
+            _write_approx_table(out_file, rows,
+                                _p_app_of(idx0, idx1, p_app, *rows[:2]))
+        logger.info("Approx table: %d rows in %.3f s", len(rows[0]),
+                    s.seconds)
         stages["merge"] = s.seconds
-        os.remove(out_file + ".approx_p")
-        os.remove(out_file + ".exact_p")
     stages["total"] = whole.seconds
     LAST_APPROX_STAGES.clear()
     LAST_APPROX_STAGES.update(stages)
@@ -448,12 +523,13 @@ def _remma_epi_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                       p_cut=1.0e-5, num_random_pair=100000,
                       out_file="epi_approx", snp_lst_0=None, seed=0,
                       mesh=None, device=None):
-    def screen(calib, approx_file):
+    def screen(calib):
         var_median = float(np.median(calib["var"]))
         logger.info("Approximate effect variance (median): %g", var_median)
-        _remma_epi_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                       snp_lst_0=snp_lst_0, var_app=var_median, p_cut=p_cut,
-                       out_file=approx_file, device=device, mesh=mesh)
+        table, bins, deno = _flat_cuts(bed_prefix, var_median, p_cut)
+        return _screen_p_app(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                             snp_lst_0, table, bins, bins, deno,
+                             device=device, mesh=mesh)
 
     return _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                             num_random_pair, out_file, seed, screen, device,
@@ -494,7 +570,7 @@ def _remma_epi_maf_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                           mesh=None, device=None):
     from gmat_tpu_torch.scan.common import prepare_genotypes
 
-    def screen(calib, approx_file):
+    def screen(calib):
         geno, _, _ = prepare_genotypes(bed_prefix)
         # AA bins both sides by MAF (.freq); DD both by heterozygote
         # frequency (.heter); AD the A side by MAF (.maf) and the D side by
@@ -514,9 +590,10 @@ def _remma_epi_maf_approx(kind, pheno_file, bed_prefix, gmat_lst, var_com,
             np.savetxt(out_file + ".heter", freq_d)
         freq_deno = _bin_denominators(calib, bins_a, bins_b, kind != "AD",
                                       out_file + ".freq_denominator")
-        _remma_epi_maf_eff(kind, pheno_file, bed_prefix, gmat_lst, var_com,
-                           snp_lst_0, bins_a, bins_b, freq_deno, p_cut,
-                           approx_file, device=device, mesh=mesh)
+        table = np.sqrt(chi2_isf(p_cut, 1) * freq_deno)
+        return _screen_p_app(kind, pheno_file, bed_prefix, gmat_lst, var_com,
+                             snp_lst_0, table, bins_a, bins_b, freq_deno,
+                             maf=True, device=device, mesh=mesh)
 
     return _approx_pipeline(kind, pheno_file, bed_prefix, gmat_lst, var_com,
                             num_random_pair, out_file, seed, screen, device,

@@ -328,6 +328,218 @@ def test_approx_pipelines_match_jax(tmp_path, mouse, mouse_pheno,
     assert m == 1407
 
 
+# the approx pipelines against their file pipeline --------------------------
+
+def _merge_approx_exact(approx_file, exact_file, out_file):
+    """The file pipeline's merge: the approx p column inserted before the
+    exact p, line by line."""
+    p_dct = {}
+    with open(approx_file) as fin:
+        for line in fin:
+            arr = line.split()
+            p_dct[" ".join(arr[:2])] = arr[-1]
+    with open(exact_file) as fin, open(out_file, "w") as fout:
+        for line in fin:
+            arr = line.split()
+            arr.insert(-1, p_dct[" ".join(arr[:2])])
+            fout.write(" ".join(arr) + "\n")
+
+
+def _file_pipeline(kind, maf, args, p_cut, num_random_pair, seed, out):
+    """The approx pipeline composed of the public file APIs: random_pair*
+    -> remma_epi*_pair(p_cut=1.1) -> read_csv -> median (or the bin-pair
+    means) -> remma_epi*[_maf]_eff -> remma_epi*_pair on its file -> merge,
+    every stage through a file."""
+    import pandas as pd
+
+    from gmat_tpu_torch.scan.common import prepare_genotypes
+
+    rp = out + ".random_pair"
+    draw = gmat_tpu_torch.random_pairAD if kind == "AD" \
+        else gmat_tpu_torch.random_pair
+    draw(1407, out_file=rp, num_pair=num_random_pair, seed=seed)
+    pair = getattr(gmat_tpu_torch, f"remma_epi{kind}_pair")
+    pair(*args, snp_pair_file=rp, p_cut=1.1, out_file=out + ".random",
+         device="cpu")
+    calib = pd.read_csv(out + ".random", header=0, sep=r"\s+")
+    approx = out + ".approx_p"
+    if not maf:
+        getattr(gmat_tpu_torch, f"remma_epi{kind}_eff")(
+            *args, var_app=float(np.median(calib["var"])), p_cut=p_cut,
+            out_file=approx, device="cpu")
+    else:
+        geno, _, _ = prepare_genotypes(args[1])
+        if kind == "AD":
+            (freq_a, bins_a), (freq_d, bins_b) = (TS._maf_bins(geno),
+                                                  TS._het_bins(geno))
+            np.savetxt(out + ".maf", freq_a)
+            np.savetxt(out + ".heter", freq_d)
+        else:
+            freq, bins_a = (TS._maf_bins if kind == "AA" else
+                            TS._het_bins)(geno)
+            np.savetxt(out + SIDE_FILES[kind][0], freq)
+            bins_b = bins_a
+        deno = TS._bin_denominators(calib, bins_a, bins_b, kind != "AD",
+                                    out + ".freq_denominator")
+        bins = ({"freqA": bins_a, "freqD": bins_b} if kind == "AD"
+                else {"freq": bins_a})
+        getattr(gmat_tpu_torch, f"remma_epi{kind}_maf_eff")(
+            *args, freq_deno=deno, p_cut=p_cut, out_file=approx,
+            device="cpu", **bins)
+    pair(*args, snp_pair_file=approx, p_cut=1.1, out_file=out + ".exact_p",
+         device="cpu")
+    _merge_approx_exact(approx, out + ".exact_p", out)
+
+
+BYTE_CASES = [("AA", False, 1e-4), ("AD", False, 1e-4), ("DD", False, 1e-4),
+              ("AA", True, 1e-4), ("AD", True, 1e-4), ("DD", True, 1e-4),
+              ("AA", False, 1e-30)]
+
+
+@pytest.mark.parametrize("kind,maf,p_cut", BYTE_CASES,
+                         ids=[f"{k}{'_maf' if f else ''}"
+                              f"{'_no_hits' if c < 1e-20 else ''}"
+                              for k, f, c in BYTE_CASES])
+def test_approx_table_is_the_file_pipelines_bytes(tmp_path, mouse,
+                                                  mouse_pheno, mouse_prefix,
+                                                  kind, maf, p_cut):
+    """The approx pipeline hands its stages arrays, and its table (and the
+    maf side files) are the bytes of the same stages run through the
+    public file APIs; p_cut 1e-30 keeps no pair in the screen."""
+    name = f"remma_epi{kind}_{'maf_' if maf else ''}approx"
+    args = (mouse_pheno, mouse_prefix, mouse["gmat"], mouse["var_com"])
+    got, want = str(tmp_path / "got"), str(tmp_path / "want")
+    getattr(gmat_tpu_torch, name)(*args, p_cut=p_cut, num_random_pair=5000,
+                                  out_file=got, seed=5, device="cpu")
+    _file_pipeline(kind, maf, args, p_cut, 5000, 5, want)
+    rows = sum(1 for _ in open(got)) - 1
+    assert (rows == 0) if p_cut < 1e-20 else (rows > 20)
+    assert filecmp.cmp(got, want, shallow=False)
+    for ext in (SIDE_FILES[kind] + [".freq_denominator"]) if maf else []:
+        assert filecmp.cmp(got + ext, want + ext, shallow=False), ext
+
+
+def test_approx_pipeline_writes_no_temporary_file(tmp_path, mouse,
+                                                  mouse_pheno, mouse_prefix,
+                                                  monkeypatch):
+    """Every path the pipelines open for writing: the table, and for the
+    maf pipelines their side files."""
+    import builtins
+
+    written = []
+    real_open, real_savetxt = builtins.open, np.savetxt
+
+    def recording_open(file, mode="r", *a, **k):
+        if any(c in mode for c in "wax+"):
+            written.append(str(file))
+        return real_open(file, mode, *a, **k)
+
+    def recording_savetxt(fname, *a, **k):
+        written.append(str(fname))
+        return real_savetxt(fname, *a, **k)
+
+    monkeypatch.setattr(builtins, "open", recording_open)
+    monkeypatch.setattr(np, "savetxt", recording_savetxt)
+    args = (mouse_pheno, mouse_prefix, mouse["gmat"], mouse["var_com"])
+    kw = {"p_cut": 1e-4, "num_random_pair": 5000, "device": "cpu"}
+    flat, maf = str(tmp_path / "flat"), str(tmp_path / "maf")
+    gmat_tpu_torch.remma_epiAA_approx(*args, out_file=flat, **kw)
+    gmat_tpu_torch.remma_epiAD_maf_approx(*args, out_file=maf, **kw)
+    monkeypatch.undo()
+    # (np.savetxt may open its file through open: a path twice)
+    assert set(written) == {flat, maf} | {
+        maf + ext for ext in (".maf", ".heter", ".freq_denominator")}
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(
+        ["flat", "maf", "maf.maf", "maf.heter", "maf.freq_denominator"])
+
+
+def _edge_doubles(seed):
+    """Seeded doubles over many decades, calibration-like variances, and
+    the edges: NaN, ±inf, ±0, subnormals, and values about 1e-4 and 1e16,
+    where repr switches between positional and exponent notation."""
+    rng = np.random.default_rng(seed)
+    near = lambda c: c * (1 + rng.uniform(-1e-3, 1e-3, 200))  # noqa: E731
+    return np.concatenate([
+        rng.standard_normal(3000) * 10.0 ** rng.integers(-30, 30, 3000),
+        rng.gamma(2.0, 1e-6, 1000), near(1e-4), near(1e16), near(1e-5),
+        [np.nan, np.inf, -np.inf, 0.0, -0.0, 5e-324, 1e-310, -2.5e-320,
+         1e-4, np.nextafter(1e-4, 0), np.nextafter(1e-4, 1), 1e16,
+         np.nextafter(1e16, 0), np.nextafter(1e16, np.inf), -1e16,
+         np.finfo(float).max, np.finfo(float).tiny, 0.1, 1 / 3]])
+
+
+def _to_csv(frame, **kw):
+    import io
+
+    buf = io.StringIO()
+    frame.to_csv(buf, sep=" ", header=False, index=False, **kw)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_var_round_trip_is_the_files(seed):
+    """`_csv_round_trip` gives, bit for bit, the var column that the file
+    pipeline read back: a pair test's six columns through `to_csv` and
+    `read_csv(sep=r"\\s+")`.  NaN stays NaN (a NaN row's empty field
+    would shift the file's columns, and its p is NaN: no such row is
+    kept)."""
+    import io
+
+    import pandas as pd
+
+    x = _edge_doubles(seed)
+    ok = ~np.isnan(x)
+    k = int(ok.sum())
+    rng = np.random.default_rng(seed + 10)
+    frame = pd.DataFrame({0: np.arange(k), 1: np.arange(k) + 1,
+                          2: rng.standard_normal(k), 3: x[ok],
+                          4: rng.gamma(1.0, 1.0, k), 5: rng.uniform(size=k)})
+    text = "snp_0 snp_1 eff var chi p\n" + _to_csv(frame)
+    want = pd.read_csv(io.StringIO(text), header=0, sep=r"\s+")["var"]
+    got = TS._csv_round_trip(x)
+    assert np.isnan(got[~ok]).all()
+    np.testing.assert_array_equal(got[ok].view(np.uint64),
+                                  want.to_numpy(dtype=np.float64)
+                                  .view(np.uint64))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_g_rounding_is_the_screen_files(dtype):
+    """`_g_round` is float() of the `%g` text that a screen file holds
+    (`to_csv(float_format="%g")`; its empty field for NaN read as NaN)."""
+    import pandas as pd
+
+    with np.errstate(over="ignore"):
+        eff = _edge_doubles(2).astype(dtype)
+    k = len(eff)
+    lines = _to_csv(pd.DataFrame({0: np.arange(k), 1: np.arange(k), 2: eff}),
+                    float_format="%g").splitlines()
+    want = np.array([float(t) if t else np.nan
+                     for t in (line.split(" ")[2] for line in lines)])
+    got = TS._g_round(eff)
+    np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
+
+
+def test_table_writer_is_to_csv(tmp_path):
+    """`_write_approx_table` writes the text of one `DataFrame.to_csv` of
+    the seven columns, p_app as str() of each float64."""
+    import pandas as pd
+
+    x = _edge_doubles(3)
+    rng = np.random.default_rng(4)
+    cols = [rng.permutation(x) for _ in range(5)]
+    i, j = rng.integers(0, 1 << 20, (2, len(x)))
+    out = tmp_path / "table"
+    TS._write_approx_table(str(out), (i, j, *cols[:3], cols[4]), cols[3])
+    want = _to_csv(pd.DataFrame({
+        0: i, 1: j, 2: cols[0], 3: cols[1], 4: cols[2],
+        5: np.array([str(v) for v in cols[3]], dtype=object), 6: cols[4]}))
+    assert out.read_text() == "snp_0 snp_1 eff var chi p_app p\n" + want
+    TS._write_approx_table(str(out), (i[:0], j[:0], *(c[:0] for c in cols[:3]),
+                                      cols[4][:0]), cols[3][:0])
+    assert out.read_text() == "snp_0 snp_1 eff var chi p_app p\n"
+
+
 # the *_parallel parts --------------------------------------------------------
 
 def _keys(path):

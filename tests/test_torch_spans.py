@@ -105,9 +105,8 @@ def test_nothing_records_outside_a_profiler(off, work, grms, caplog,
     assert set(TS.LAST_APPROX_STAGES) == set(STAGES) | {"total"}
     assert all(v > 0 for v in TS.LAST_APPROX_STAGES.values())
     for line in ("Screen engine setup (pieces/geno/codings): ",
-                 "Screen sweep(s) incl. assembly: ", "Screen write: ",
-                 "Approx p append: ", "Roofline screen: ",
-                 "Approx pipeline stages (s): "):
+                 "Screen sweep(s) incl. assembly: ", "Approx table: ",
+                 "Roofline screen: ", "Approx pipeline stages (s): "):
         assert line in caplog.text, line
 
 
@@ -141,14 +140,17 @@ def test_the_tree_under_a_profiler(off, work, grms):
     stage = {r.name[len("approx."):]: r for r in recs
              if r.parent == approx.id}
     assert _children(recs, stage["prep"]) == ["design.parse", "pieces"]
-    assert _children(recs, stage["draw"]) == ["draw.write"]
-    assert _children(recs, stage["calibrate"]) == [
-        "pairs.read", "pairs.test", "pairs.write", "calibrate.read"]
-    assert _children(recs, stage["retest"]) == [
-        "pairs.read", "pairs.test", "pairs.write"]
-    assert _children(recs, stage["screen"]) == [
-        "screen.setup", "screen.sweep", "screen.write", "screen.append"]
+    # the stages hand each other arrays: no file leaf but the table's write,
+    # which is the merge stage itself
+    assert _children(recs, stage["draw"]) == []
+    assert _children(recs, stage["calibrate"]) == ["pairs.test",
+                                                    "calibrate.var"]
+    assert _children(recs, stage["retest"]) == ["pairs.test"]
+    assert _children(recs, stage["screen"]) == ["screen.setup",
+                                                "screen.sweep"]
     assert _children(recs, stage["merge"]) == []
+    rows = sum(1 for _ in open(work / "ap")) - 1
+    assert rows > 0 and stage["merge"].counts == {"rows": rows}
     sweep = next(r for r in recs if r.name == "screen.sweep")
     assert _children(recs, sweep) == ["screen.run"]
     # the run's pairs and hits count once, on the sweep
@@ -169,6 +171,40 @@ def test_the_tree_under_a_profiler(off, work, grms):
     got = dict(TS.LAST_APPROX_STAGES)
     assert got.pop("total") == approx.seconds
     assert got == {s: stage[s].seconds for s in STAGES}
+
+
+def test_the_file_apis_keep_their_file_leaves(off, work, grms):
+    """The public file APIs that share the approx pipeline's array cores
+    still record their file leaves: `random_pair`'s `draw.write`, the pair
+    test's `pairs.read` and `pairs.write`, the screen's `screen.write` and
+    `screen.append`."""
+    import gmat_tpu_torch
+
+    prefix, pheno = str(work / "plink"), str(work / "pheno")
+    var = np.load(GOLDEN / "epi_scans.npz")["var_com"]
+    rp = str(work / "rp")
+    before = len(spans.spans())
+    with profile(activities=[ProfilerActivity.CPU]):
+        gmat_tpu_torch.random_pair(1407, out_file=rp, num_pair=6000)
+        gmat_tpu_torch.remma_epiAA_pair(pheno, prefix, grms, var,
+                                        snp_pair_file=rp, p_cut=1.1,
+                                        out_file=str(work / "pr"),
+                                        device="cpu")
+        gmat_tpu_torch.remma_epiAA_eff(pheno, prefix, grms, var,
+                                       var_app=1e-3, p_cut=1e-4,
+                                       out_file=str(work / "ef"),
+                                       device="cpu")
+    recs = [r for r in new_spans(before) if r.name != "gc"]
+    roots = [r for r in recs if r.parent == 0]
+    assert [r.name for r in roots] == ["draw.write", "pair", "eff"]
+    draw, pair, eff = roots
+    assert _children(recs, pair) == ["design.parse", "pieces", "pairs.read",
+                                     "pairs.test", "pairs.write"]
+    assert next(r for r in recs if r.name == "pairs.test").counts == {
+        "pairs": 6000}
+    assert _children(recs, eff) == ["screen.setup", "screen.sweep",
+                                    "screen.write", "screen.append"]
+    assert sum(1 for _ in open(rp)) == sum(1 for _ in open(work / "pr"))
 
 
 def test_reml_counts_iterations_and_the_limit(off, work, grms):
