@@ -3,8 +3,9 @@
 After the window, a sample of the completed units drawn from the seed (the
 longest among them) is worked out again by `reference/remma.py` in
 float64 from the benchmark's own inputs: the GRMs, REML, P and py, and
-then what the unit's scan wrote.  Each number is held to its limit in the
-traffic mix's `"check"`:
+then what the unit's scan wrote, in the codings and over the pair set of
+the mix's epistasis kind (`Context.kind`).  Each number is held to its
+limit in the traffic mix's `"check"`:
 
 - `var_gap`: the largest gap of a variance component, relative to it or
   to the median component, whichever is larger, over the sampled units
@@ -100,9 +101,9 @@ def run(ctx, log=sys.stderr):
     spec, args = ctx.traffic["check"], ctx.traffic["args"]
     approx = ctx.traffic["family"] == "approx"
     units = sample(ctx)
-    f64, dev = torch.float64, ctx.device
+    f64, dev, ordered = torch.float64, ctx.device, ctx.ordered
     geno = ctx.geno.to(dev)
-    mat = R.centered(geno, f64)[0]
+    mats = R.codings(geno, ctx.kind, f64)
     grm_lst = R.grms(geno, ctx.config["model"]["grms"], f64)
     x = torch.as_tensor(ctx.xmat, dtype=f64, device=dev)
     gaps = dict.fromkeys(("var_gap", "stat_gap", "screen_gap") if approx
@@ -125,22 +126,21 @@ def run(ctx, log=sys.stderr):
         y = torch.as_tensor(ctx.traits[unit.trait], dtype=f64, device=dev)
         py, pmat = R.pieces(var, y, x, grm_lst)
         rows = unit.out
-        ref = R.pair_stats(mat, py, pmat, rows["i"], rows["j"])
+        ref = R.pair_stats(*mats, py, pmat, rows["i"], rows["j"])
         got = (rows["i"], rows["j"])
         if approx:
             gaps["stat_gap"] = worst(gaps["stat_gap"], stat_gap(rows, ref))
             calib = R.random_pairs(m, args["num_random_pair"],
-                                   args.get("seed", 0))
-            med = np.median(R.pair_stats(mat, py, pmat, calib[:, 0],
+                                   args.get("seed", 0), ordered=ordered)
+            med = np.median(R.pair_stats(*mats, py, pmat, calib[:, 0],
                                          calib[:, 1])[1])
             cut = math.sqrt(R.chi2_crit(args["p_cut"]) * med)
-            si, sj, seff = R.screen(mat, py, cut)
+            si, sj, seff = R.screen(*mats, py, cut, ordered=ordered)
             gaps["screen_gap"] = worst(gaps["screen_gap"], set_gap(
                 m, got, np.abs(ref[0]), (si, sj), np.abs(seff), cut))
         else:
-            anchors = (range(m - 1) if unit.part is None else
-                       R.part_anchors(m, ctx.traffic["parts"], unit.part))
-            hits = R.exact_scan(mat, py, pmat, anchors, args["p_cut"])
+            hits = R.exact_scan(*mats, py, pmat, ctx.anchors(unit.part),
+                                args["p_cut"], ordered=ordered)
             gap = worst(stat_gap(rows, ref), set_gap(
                 m, got, ref[2], hits[:2], hits[4],
                 R.chi2_crit(args["p_cut"])))

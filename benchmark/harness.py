@@ -3,7 +3,10 @@ and the check of what the window produced.
 
 Everything is found by name from `BENCHMARK.json`: the cell's
 configuration file, its traffic mix `traffic/<mix>.json` and a reader
-`metrics/<metric>.py` for each metric.  A mix names the unit of work:
+`metrics/<metric>.py` for each metric.  A mix may name its epistasis
+kind, `"kind": "AA" | "AD" | "DD"` (AA where it names none), which sets
+the codings, the pair set and the calibration draw that the check and
+the rooflines follow.  A mix names the unit of work:
 
 - `"unit": "trait"`: one phenotype after another in a closed loop, each
   written to a file of its own name, then REML (`wemai_multi_gmat`) and
@@ -95,6 +98,25 @@ class Context:
     @property
     def n_snp(self):
         return self.geno.shape[1]
+
+    @property
+    def kind(self):
+        """The mix's epistasis kind (`reference.remma.KINDS`), AA unless
+        it names one."""
+        return self.traffic.get("kind", "AA")
+
+    @property
+    def ordered(self):
+        """Whether the kind's pairs are ordered (AD)."""
+        return R.KINDS[self.kind][2]
+
+    def anchors(self, part=None):
+        """The anchors of an exhaustive unit: all of them, or those of
+        part `part` of the mix's split."""
+        if part is None:
+            return R.all_anchors(self.n_snp, self.ordered)
+        return R.part_anchors(self.n_snp, self.traffic["parts"], part,
+                              self.ordered)
 
     @property
     def done(self):
@@ -224,11 +246,8 @@ def run_unit(ctx, program, index, trait, part, var=None):
         unit.error = f"{type(exc).__name__}: {exc}"
         print(f"unit {index} failed: {unit.error}", file=sys.stderr)
     unit.end = time.perf_counter()
-    if part is not None:
-        unit.pairs = int(np.sum(ctx.n_snp - 1 - np.asarray(
-            R.part_anchors(ctx.n_snp, ctx.traffic["parts"], part))))
-    elif ctx.traffic["family"] == "exhaustive":
-        unit.pairs = ctx.n_snp * (ctx.n_snp - 1) // 2
+    if ctx.traffic["family"] == "exhaustive":
+        unit.pairs = R.pair_count(ctx.anchors(part), ctx.n_snp, ctx.ordered)
     return unit
 
 

@@ -82,13 +82,13 @@ class Control:
 
     def __init__(self, device):
         self.device = torch.device(device)
-        self._mat = None
+        self._mats = None
 
     def build(self):
         pass
 
     def grms(self, ctx):
-        self._mat = R.centered(ctx.geno, torch.float32)[0]
+        self._mats = R.codings(ctx.geno, ctx.kind, torch.float32)
         return R.grms(ctx.geno, ctx.config["model"]["grms"], torch.float32)
 
     def _design(self, ctx, trait):
@@ -104,19 +104,16 @@ class Control:
     def scan(self, ctx, trait, pheno, var, out, part=None):
         y, x = self._design(ctx, trait)
         py, pmat = R.pieces(var, y, x, ctx.gmat_lst)
-        args = ctx.traffic["args"]
-        mat = self._mat
+        args, mats, ordered = ctx.traffic["args"], self._mats, ctx.ordered
         if ctx.traffic["family"] == "approx":
-            calib = R.random_pairs(mat.shape[1], args["num_random_pair"],
-                                   args.get("seed", 0))
-            med = np.median(R.pair_stats(mat, py, pmat, calib[:, 0],
+            calib = R.random_pairs(ctx.n_snp, args["num_random_pair"],
+                                   args.get("seed", 0), ordered=ordered)
+            med = np.median(R.pair_stats(*mats, py, pmat, calib[:, 0],
                                          calib[:, 1])[1])
             cut = np.sqrt(R.chi2_crit(args["p_cut"]) * med)
-            i, j, _ = R.screen(mat, py, cut, tf32=True)
-            rows = (i, j) + R.pair_stats(mat, py, pmat, i, j)
+            i, j, _ = R.screen(*mats, py, cut, ordered=ordered, tf32=True)
+            rows = (i, j) + R.pair_stats(*mats, py, pmat, i, j)
         else:
-            anchors = (range(mat.shape[1] - 1) if part is None else
-                       R.part_anchors(mat.shape[1], ctx.traffic["parts"],
-                                      part))
-            rows = R.exact_scan(mat, py, pmat, anchors, args["p_cut"])
+            rows = R.exact_scan(*mats, py, pmat, ctx.anchors(part),
+                                args["p_cut"], ordered=ordered)
         return dict(zip(ROW_KEYS, rows)), {}

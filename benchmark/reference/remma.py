@@ -4,16 +4,24 @@ Model, with one record per individual in .fam order (Z = I):
 
     y = X b + u_1 + ... + u_k + e,   u_i ~ N(0, σ²_i G_i),  e ~ N(0, σ²_e I)
 
-- GRMs: M = g - 2p (allele frequency p), ag = M Mᵀ / Σ 2p(1-p) with the
-  diagonal times 1.001; the configuration names the terms ("ag",
-  "ag*ag": the elementwise product).
+- Codings: the additive M = g - 2p (allele frequency p), scale
+  Σ 2p(1-p); the dominance D = het - s (het: g with 2 recoded to 0,
+  s = 2p(1-p)), scale Σ s(1-s).
+- GRMs: ag = M Mᵀ / Σ 2p(1-p), dg = D Dᵀ / Σ s(1-s), each with the
+  diagonal times 1.001; the configuration names the terms ("ag", "dg",
+  and elementwise products such as "ag*ag", "ag*dg", "dg*dg").
 - REML by upstream GMAT's weighted EM + AI iteration (`reml`), which
   reports whether it converged within its iteration limit.
 - Score pieces: P = V⁻¹ - V⁻¹X (XᵀV⁻¹X)⁻¹ XᵀV⁻¹, py = P y.
-- The AxA test of a pair (i, j): e = M_i ⊙ M_j, eff = eᵀ py,
-  var = eᵀ P e, chi = eff² / var, p = erfc(sqrt(chi / 2)).
-- The effect screen keeps the pairs j > i with |eff| > sqrt(chi_crit(p) ·
-  median var of the calibration pairs).
+- An epistasis kind (`KINDS`) codes the first SNP of a pair (i, j) and
+  the second: AA by (M, M), AD by (M, D), DD by (D, D).  Its test:
+  e = mat0_i ⊙ mat1_j, eff = eᵀ py, var = eᵀ P e, chi = eff² / var,
+  p = erfc(sqrt(chi / 2)).
+- Pair sets: AA and DD take the pairs j > i; AD is ordered, and its
+  screen and calibration draw take every (i, j) with i != j, its
+  exhaustive scan every (i, j), i == j too (upstream's full rectangle).
+- The effect screen keeps the pairs of the kind's set with |eff| >
+  sqrt(chi_crit(p) · median var of the calibration pairs).
 
 Every function takes a `dtype`: float64 is the reference; float32 (and
 TF32 for the screen, by `tf32_round`) is the lower precision that the
@@ -47,6 +55,12 @@ def chi2_sf(chi):
     return torch.special.erfc(torch.sqrt(torch.clamp(chi, min=0.0) / 2.0))
 
 
+#: kind -> (coding of the pair's first SNP, of its second, ordered pairs)
+KINDS = {"AA": ("add", "add", False),
+         "AD": ("add", "dom", True),
+         "DD": ("dom", "dom", False)}
+
+
 def centered(geno, dtype):
     """(M, scale): the centred additive coding g - 2p and Σ 2p(1-p)."""
     g = geno.to(dtype)
@@ -54,19 +68,46 @@ def centered(geno, dtype):
     return g - 2.0 * freq, torch.sum(2.0 * freq * (1.0 - freq))
 
 
+def dominance(geno, dtype):
+    """(D, scale): the heterozygote indicator (g = 2 recoded to 0) minus
+    s = 2p(1-p), and Σ s(1-s)."""
+    g = geno.to(dtype)
+    freq = g.sum(dim=0) / (2.0 * g.shape[0])
+    s = 2.0 * freq * (1.0 - freq)
+    het = torch.where(g > 1.5, torch.zeros_like(g), g)
+    return het - s, torch.sum(s * (1.0 - s))
+
+
+_CODING = {"add": centered, "dom": dominance}
+
+
+def codings(geno, kind, dtype):
+    """(mat0, mat1): the codings of the first and the second SNP of a pair
+    of `kind`, one tensor where the two are the same."""
+    first, second, _ = KINDS[kind]
+    mat0 = _CODING[first](geno, dtype)[0]
+    return mat0, (mat0 if second == first
+                  else _CODING[second](geno, dtype)[0])
+
+
 def grms(geno, terms, dtype):
-    """The GRMs named by `terms` ("ag", "ag*ag")."""
-    mat, scale = centered(geno, dtype)
-    ag = (mat @ mat.T) / scale
-    ag.diagonal().mul_(1.001)
+    """The GRMs named by `terms`: "ag", "dg" and their elementwise
+    products ("ag*ag", "ag*dg", "dg*dg", ...)."""
+    base = {}
     out = []
     for term in terms:
         parts = [t.strip() for t in term.split("*")]
-        if any(t != "ag" for t in parts):
-            raise ValueError(f"the reference has no GRM term {term!r}")
-        g = ag
-        for _ in parts[1:]:
-            g = g * ag
+        for part in parts:
+            if part not in ("ag", "dg"):
+                raise ValueError(f"the reference has no GRM term {term!r}")
+            if part not in base:
+                mat, scale = _CODING["add" if part == "ag" else "dom"](
+                    geno, dtype)
+                base[part] = (mat @ mat.T) / scale
+                base[part].diagonal().mul_(1.001)
+        g = base[parts[0]]
+        for part in parts[1:]:
+            g = g * base[part]
         out.append(g)
     return out
 
@@ -125,14 +166,15 @@ def pieces(var, y, xmat, grm_lst):
     return pmat @ y, pmat
 
 
-def pair_stats(mat, py, pmat, i, j):
-    """(eff, var, chi, p) of the AxA pairs (i[k], j[k]) as float64 numpy
-    arrays, computed in mat's dtype, `PAIR_BLOCK` pairs at a time."""
-    i = torch.as_tensor(np.asarray(i, dtype=np.int64), device=mat.device)
-    j = torch.as_tensor(np.asarray(j, dtype=np.int64), device=mat.device)
+def pair_stats(mat0, mat1, py, pmat, i, j):
+    """(eff, var, chi, p) of the pairs (i[k], j[k]) as float64 numpy
+    arrays, e = mat0[:, i] ⊙ mat1[:, j], computed in mat0's dtype,
+    `PAIR_BLOCK` pairs at a time."""
+    i = torch.as_tensor(np.asarray(i, dtype=np.int64), device=mat0.device)
+    j = torch.as_tensor(np.asarray(j, dtype=np.int64), device=mat0.device)
     out = [[], [], [], []]
     for s in range(0, len(i), PAIR_BLOCK):
-        e = mat[:, i[s:s + PAIR_BLOCK]] * mat[:, j[s:s + PAIR_BLOCK]]
+        e = mat0[:, i[s:s + PAIR_BLOCK]] * mat1[:, j[s:s + PAIR_BLOCK]]
         eff = e.T @ py
         var = torch.sum(e * (pmat @ e), dim=0)
         chi = eff * eff / var
@@ -152,52 +194,84 @@ def triangle_pairs(anchors, num_snp):
     return i, j
 
 
-def exact_scan(mat, py, pmat, anchors, p_cut):
-    """Rows (i, j, eff, var, chi, p) of the pairs j > i of `anchors` with
-    chi > chi_crit(p_cut), every pair tested."""
-    i, j = triangle_pairs(anchors, mat.shape[1])
+def rectangle_pairs(anchors, num_snp):
+    """(i, j) of every pair of an anchor and any SNP, i == j too, anchors
+    in list order and partners ascending."""
+    anchors = np.asarray(anchors, dtype=np.int64)
+    return (np.repeat(anchors, num_snp),
+            np.tile(np.arange(num_snp, dtype=np.int64), len(anchors)))
+
+
+def pair_count(anchors, num_snp, ordered=False):
+    """The number of pairs that `exact_scan` tests for `anchors`."""
+    anchors = np.asarray(list(anchors), dtype=np.int64)
+    if ordered:
+        return len(anchors) * num_snp
+    return int(np.sum(num_snp - 1 - anchors))
+
+
+def all_anchors(num_snp, ordered=False):
+    """The anchors of a whole exhaustive scan: all but the last SNP (which
+    has no partner j > i), every SNP where `ordered`."""
+    return range(num_snp if ordered else num_snp - 1)
+
+
+def exact_scan(mat0, mat1, py, pmat, anchors, p_cut, ordered=False):
+    """Rows (i, j, eff, var, chi, p) of the pairs of `anchors` (j > i,
+    or with `ordered` (AD) every partner) with chi > chi_crit(p_cut),
+    every pair tested."""
+    pairs = rectangle_pairs if ordered else triangle_pairs
+    i, j = pairs(anchors, mat0.shape[1])
     crit = chi2_crit(p_cut)
     keep = [[] for _ in range(6)]
     for s in range(0, len(i), 8 * PAIR_BLOCK):
         bi, bj = i[s:s + 8 * PAIR_BLOCK], j[s:s + 8 * PAIR_BLOCK]
-        stats = pair_stats(mat, py, pmat, bi, bj)
+        stats = pair_stats(mat0, mat1, py, pmat, bi, bj)
         hit = stats[2] > crit
         for col, x in zip(keep, (bi, bj) + stats):
             col.append(x[hit])
     return tuple(np.concatenate(c) for c in keep)
 
 
-def screen(mat, py, cut, tf32=False):
-    """(i, j, eff) of every pair j > i with |eff| > cut, in mat's dtype;
-    with `tf32` both operands of the product are rounded to TF32."""
-    a = mat * py[:, None]
-    b = mat
+def screen(mat0, mat1, py, cut, ordered=False, tf32=False):
+    """(i, j, eff) of every pair j > i, or with `ordered` every (i, j)
+    with i != j, whose eff = Σ mat0_i py mat1_j has |eff| > cut, in mat0's
+    dtype, rows ascending; with `tf32` both operands of the product are
+    rounded to TF32."""
+    a = mat0 * py[:, None]
+    b = mat1
     if tf32:
         a, b = tf32_round(a), tf32_round(b)
-    m = mat.shape[1]
-    cols = torch.arange(m, device=mat.device)
+    m = mat0.shape[1]
+    last = m if ordered else m - 1  # the rows that have a partner
+    cols = torch.arange(m, device=mat0.device)
     out = [[], [], []]
-    for r0 in range(0, m - 1, SCREEN_ROWS):
-        r1 = min(r0 + SCREEN_ROWS, m - 1)
+    for r0 in range(0, last, SCREEN_ROWS):
+        r1 = min(r0 + SCREEN_ROWS, last)
         s = a[:, r0:r1].T @ b
-        rows = torch.arange(r0, r1, device=mat.device)
-        hit = (torch.abs(s) > cut) & (cols[None, :] > rows[:, None])
+        rows = torch.arange(r0, r1, device=mat0.device)
+        pair = ((cols[None, :] != rows[:, None]) if ordered
+                else (cols[None, :] > rows[:, None]))
+        hit = (torch.abs(s) > cut) & pair
         ri, cj = torch.nonzero(hit, as_tuple=True)
         for col, x in zip(out, (ri + r0, cj, s[ri, cj])):
             col.append(x.cpu())
     return tuple(torch.cat(c).numpy() for c in out)
 
 
-def random_pairs(num_snp, num_pair, seed, num_each_pair=5000):
-    """The calibration pairs of the approx pipeline: unique (i < j) pairs
-    rejection-sampled from numpy's default_rng(seed), as the upstream
-    `random_pair` draws them."""
+def random_pairs(num_snp, num_pair, seed, num_each_pair=5000,
+                 ordered=False):
+    """The calibration pairs of the approx pipeline: unique (i < j) pairs,
+    or with `ordered` (AD) unique (i != j) pairs, rejection-sampled from
+    numpy's default_rng(seed), as the upstream `random_pair` and
+    `random_pairAD` draw them."""
     rng = np.random.default_rng(seed)
     seen = set()
     out = []
     while len(out) < num_pair:
         arr = rng.integers(0, num_snp, size=(num_each_pair, 2))
-        for i, j in arr[arr[:, 0] < arr[:, 1]]:
+        keep = (arr[:, 0] != arr[:, 1]) if ordered else (arr[:, 0] < arr[:, 1])
+        for i, j in arr[keep]:
             key = (int(i), int(j))
             if key not in seen:
                 seen.add(key)
@@ -205,11 +279,13 @@ def random_pairs(num_snp, num_pair, seed, num_each_pair=5000):
     return np.asarray(out[:num_pair], dtype=np.int64)
 
 
-def part_anchors(num_snp, n_parts, part):
+def part_anchors(num_snp, n_parts, part, ordered=False):
     """The anchors of part `part` of the upstream balanced triangular
     split into `n_parts`: blocks part-1 and 2·n_parts-part of
-    num_snp // (2·n_parts) anchors, part 1 also taking the remainder."""
+    num_snp // (2·n_parts) anchors, part 1 also taking the remainder, up
+    to the last anchor of `all_anchors`."""
     size = num_snp // (2 * n_parts)
-    hi = (2 * n_parts - part + 1) * size if part != 1 else num_snp - 1
+    hi = ((2 * n_parts - part + 1) * size if part != 1
+          else len(all_anchors(num_snp, ordered)))
     return (list(range((part - 1) * size, part * size))
             + list(range((2 * n_parts - part) * size, hi)))

@@ -8,10 +8,12 @@ card's power limit beside it.
 
 - K1, the effect screen (`screen_count*` and `screen_extract*`): the
   least work of one screen is 2n FLOP per pair (a multiply and an add per
-  individual) over all m(m-1)/2 pairs, of float32-grade precision; the
-  kernel reaches it with three TF32 products per multiply-add (3xTF32), so
-  its peak is 495 / 3 = 165 TFLOP/s.  The least bytes: the (n, m) float32
-  panel and py read once.
+  individual) over every pair of the kind's set: m(m-1)/2 for AA and DD
+  (j > i), m(m-1) for AD (every i != j, which the port screens in two
+  sweeps), of float32-grade precision; the kernel reaches it with three
+  TF32 products per multiply-add (3xTF32), so its peak is 495 / 3 = 165
+  TFLOP/s.  The least bytes: each distinct (n, m) float32 coding (one for
+  AA and DD, two for AD) and py read once.
 - K2, the exact scan (`exact_scan`): n² + 7n FP64 FLOP per pair tested
   (the quadratic form eᵀPe over the symmetric half of P, n² multiply-adds
   counted once each for the n(n+1)/2 terms, plus forming e, eᵀpy and the
@@ -29,15 +31,18 @@ K1_PEAK = PEAK["tf32_tensor"] / 3.0
 K2_PEAK = PEAK["fp64_tensor"]
 
 
-def screen_pairs(m):
-    """Pairs j > i of an m-SNP screen over every anchor."""
-    return m * (m - 1) // 2
+def screen_pairs(m, kind="AA"):
+    """Pairs of an m-SNP screen of `kind` over every anchor: j > i (AA,
+    DD), every i != j (AD)."""
+    half = m * (m - 1) // 2
+    return 2 * half if kind == "AD" else half
 
 
-def k1_least_seconds(n, m):
-    """Least time of one screen of an (n, m) panel."""
-    flop = 2.0 * n * screen_pairs(m)
-    nbytes = 4.0 * n * m + 4.0 * n
+def k1_least_seconds(n, m, kind="AA"):
+    """Least time of one screen of `kind` of an (n, m) panel."""
+    flop = 2.0 * n * screen_pairs(m, kind)
+    codings = 2 if kind == "AD" else 1
+    nbytes = 4.0 * n * m * codings + 4.0 * n
     return max(flop / K1_PEAK, nbytes / PEAK["hbm_bytes"])
 
 

@@ -11,7 +11,8 @@ from benchmark import harness
 from benchmark.program import Control
 from benchmark.tests.conftest import small
 
-CELLS = ("yeast.approx_aa", "yeast.exact_aa_parts", "mouse.exact_aa")
+CELLS = ("yeast.approx_aa", "yeast.exact_aa_parts", "mouse.exact_aa",
+         "yeast.approx_ad")
 
 
 def run(bench, cell, program_cls=harness.Program, seed=2**33 + 11):
@@ -94,6 +95,40 @@ def pair_test_altered(monkeypatch):
     monkeypatch.setattr(pairs, "_pair_kernel", broken)
 
 
+def ad_rows_transposed(monkeypatch):
+    """The AD screen writes each sweep's rows the other way round: the
+    first sweep's (i, j) as (j, i), the second's unflipped."""
+    from gmat_tpu_torch.scan import screen
+
+    real = screen._run_screen
+    monkeypatch.setattr(
+        screen, "_run_screen", lambda *a, flip_output=False, **kw: real(
+            *a, flip_output=not flip_output, **kw))
+
+
+def dominance_as_additive(monkeypatch):
+    """The dominance coding is replaced by the additive one."""
+    from gmat_tpu_torch.scan import common
+
+    real = common.coded_matrix
+    monkeypatch.setattr(common, "coded_matrix",
+                        lambda g, kind, dtype=None: real(g, "add", dtype))
+
+
+def ad_sweep_dropped(monkeypatch):
+    """The AD screen's second sweep, (D_i, A_j) written (j, i), finds
+    nothing."""
+    from gmat_tpu_torch.scan import screen
+
+    real = screen._run_screen
+
+    def broken(*a, flip_output=False, **kw):
+        out = real(*a, flip_output=flip_output, **kw)
+        return tuple(t[:0] for t in out) if flip_output else out
+
+    monkeypatch.setattr(screen, "_run_screen", broken)
+
+
 FAULTS = [
     ("yeast.approx_aa", reml_unchanged),
     ("yeast.approx_aa", screen_hit_dropped),
@@ -102,6 +137,9 @@ FAULTS = [
     ("yeast.exact_aa_parts", exact_half_dropped),
     ("mouse.exact_aa", reml_unchanged),
     ("mouse.exact_aa", exact_hit_altered),
+    ("yeast.approx_ad", ad_rows_transposed),
+    ("yeast.approx_ad", dominance_as_additive),
+    ("yeast.approx_ad", ad_sweep_dropped),
 ]
 
 

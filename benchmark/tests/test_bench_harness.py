@@ -60,6 +60,11 @@ def test_flop_counts_at_the_cells_shapes():
     assert roofline.screen_pairs(28220) == 398170090
     assert roofline.k1_least_seconds(4168, 28220) == pytest.approx(
         2 * 4168 * 398170090 / 165e12)
+    # DD as AA; AD: every ordered pair i != j, 2n FLOP each
+    assert roofline.screen_pairs(28220, "DD") == 398170090
+    assert roofline.screen_pairs(28220, "AD") == 796340180
+    assert roofline.k1_least_seconds(4168, 28220, "AD") == pytest.approx(
+        2 * 4168 * 796340180 / 165e12)
     # K2: n² + 7n FLOP a pair at 67 TFLOP/s; the [100, k] part of yeast
     assert roofline.k2_pair_flop(4168) == 4168 ** 2 + 7 * 4168
     assert roofline.k2_pair_flop(1304) == 1304 ** 2 + 7 * 1304
@@ -139,6 +144,71 @@ def test_result_line_and_new_files_alone(tmp_path, bench):
     assert set(traced["breakdown"]) == {"device_ops", "idle_gaps"}
     assert names == ["var_gap", "row_gap"]
     assert "check var_gap:" in out.stderr and "check row_gap:" in out.stderr
+
+
+#: mixes of the other kinds over a configuration with the model [ag, dg]
+NEW_KINDS = {
+    "AD": {"unit": "part", "family": "exhaustive", "kind": "AD",
+           "scan": "remma_epiAD_parallel", "args": {"p_cut": 0.01},
+           "parts": 4, "pool": 1,
+           "check": {"units": 2, "limits": {"var_gap": 1e-08,
+                                            "row_gap": 1e-08}}},
+    "DD": {"unit": "trait", "family": "approx", "kind": "DD",
+           "scan": "remma_epiDD_approx",
+           "args": {"p_cut": 0.001, "num_random_pair": 5000, "seed": 0},
+           "pool": 4,
+           "check": {"units": 2, "limits": {"var_gap": 1e-08,
+                                            "stat_gap": 1e-08,
+                                            "screen_gap": 3e-05}}},
+}
+
+
+@pytest.mark.parametrize("kind", sorted(NEW_KINDS))
+def test_other_kinds_and_dominance_grms_are_files_alone(tmp_path, bench,
+                                                        kind):
+    """A cell of another epistasis kind, over a configuration whose model
+    has the dominance GRM, is a configuration file, a mix file and
+    entries: a CPU run of it is correct, and the control in the
+    program's place is not."""
+    shutil.copytree(HERE, tmp_path / "benchmark",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    config, _ = small("yeast.approx_aa", bench)
+    config.update(name="tiny_dg", n_snp=400,
+                  model={"name": "a_d", "grms": ["ag", "dg"]})
+    (tmp_path / "benchmark" / "configs" / "tiny_dg.json").write_text(
+        json.dumps(config))
+    (tmp_path / "benchmark" / "traffic" / "tiny_kind.json").write_text(
+        json.dumps(NEW_KINDS[kind]))
+    new = json.loads(json.dumps(bench))
+    new["configs"].append({"name": "tiny_dg", "source": "https://example.org",
+                           "file": "benchmark/configs/tiny_dg.json",
+                           "reduced": [], "why": "a CPU test"})
+    new["workloads"].append({"name": "tiny_dg.kind", "config": "tiny_dg",
+                             "traffic": "tiny_kind", "chips": 1,
+                             "why": "a CPU test"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(new))
+    code = (
+        "import json, sys\n"
+        "sys.path.insert(0, '.')\n"
+        "from benchmark import harness\n"
+        "from benchmark.program import Control, Program\n"
+        "bench = harness.load_json('BENCHMARK.json')\n"
+        "for cls in (Program, Control):\n"
+        "    r, checks = harness.run_cell(bench, 'tiny_dg.kind', 2**33 + 7,\n"
+        "                                 1.0, False, device='cpu',\n"
+        "                                 program_cls=cls)\n"
+        "    print(json.dumps([r['correct'], r['attempted'],\n"
+        "                      {k: v['value'] for k, v in checks.items()}]))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                         capture_output=True, text=True, env=env,
+                         timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    (sound, n, checks), (control, _, controls) = (
+        json.loads(line) for line in out.stdout.strip().splitlines()[-2:])
+    assert sound and n >= 1, checks
+    assert not control, controls
+    assert set(checks) == set(NEW_KINDS[kind]["check"]["limits"])
 
 
 def test_cli_without_a_card_exits_nonzero_and_prints_no_result():

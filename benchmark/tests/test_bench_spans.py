@@ -1,5 +1,5 @@
 """The readers of the program's spans (`gmat_tpu_torch.core.spans`) on
-small traced CPU runs of the two trait cells: each reads a number, and
+small traced CPU runs of the trait cells: each reads a number, and
 none where the program keeps no span."""
 import pytest
 
@@ -10,7 +10,8 @@ SPAN_METRICS = ("reml_iters", "reml_iter_s", "upload_bytes", "host_io_s",
                 "gc_s", "idle_host_io.trait")
 
 
-@pytest.mark.parametrize("cell", ["yeast.approx_aa", "mouse.exact_aa"])
+@pytest.mark.parametrize("cell", ["yeast.approx_aa", "mouse.exact_aa",
+                                  "yeast.approx_ad"])
 def test_span_metrics_read_numbers_in_a_traced_run(bench, cell):
     config, traffic = small(cell, bench)
     res, _ = harness.run_cell(bench, cell, 2**33 + 41, 1.0, True,
