@@ -2,25 +2,31 @@
 and the check of what the window produced.
 
 Everything is found by name from `BENCHMARK.json`: the cell's
-configuration file, its traffic mix `traffic/<mix>.json` and a reader
-`metrics/<metric>.py` for each metric.  A mix may name its epistasis
-kind, `"kind": "AA" | "AD" | "DD"` (AA where it names none), which sets
-the codings, the pair set and the calibration draw that the check and
-the rooflines follow.  A mix names the unit of work:
+configuration file, its traffic mix `traffic/<mix>.json`, the mix's scan
+family `families/<family>.py` (`"family"`) and a reader
+`metrics/<metric>.py` for each metric.  The harness holds the panel, the
+closed loop, the window, the trace, the metrics and the result line; the
+family holds everything of its scans: the traits, each unit's input
+files, the set-up product, the calls of both sides (`program.py`), the
+tables read back, the pairs a unit counts and the numbers of the check.
+A mix names the unit of work:
 
-- `"unit": "trait"`: one phenotype after another in a closed loop, each
-  written to a file of its own name, then REML (`wemai_multi_gmat`) and
-  the mix's scan on it.  A mix with `"boundary": {"of": b, "at": [..]}`
-  fixes which of each block of b traits are traits whose REML maximum of
-  the last variance lies at its boundary 0 (REML then runs to its
-  iteration limit): those at the positions `at`, the others interior, so
-  that every seed sends the same share of both in the same order;
+- `"unit": "trait"`: one trait after another in a closed loop, each
+  written to input files of its own name, then its variance components
+  (REML) and the mix's scan on it.  A mix with
+  `"boundary": {"of": b, "at": [..]}` fixes which of each block of b
+  traits are traits that the family flags (`boundary(ctx)`: for REMMA,
+  those whose REML maximum of the last variance lies at its boundary 0,
+  where REML runs to its iteration limit): those at the positions `at`,
+  the others not, so that every seed sends the same share of both in the
+  same order;
 - `"unit": "part"`: one trait whose REML is set-up, then one part after
-  another of the mix's `_parallel` scan, from a part drawn from the seed.
+  another of the mix's split scan (`"parts"`), from a part drawn from the
+  seed.
 
 The window runs units until `seconds` have passed and finishes the unit
-in flight.  Set-up builds the inputs, the GRMs and one unit of the same
-work, so that nothing is built or compiled in the window.
+in flight.  Set-up builds the inputs, the set-up product and one unit of
+the same work, so that nothing is built or compiled in the window.
 """
 from __future__ import annotations
 
@@ -37,8 +43,7 @@ import numpy as np
 import torch
 
 from benchmark import check, generate, trace
-from benchmark.program import Program, read_rows
-from benchmark.reference import remma as R
+from benchmark.program import Program
 
 ROOT = Path(__file__).resolve().parents[1]
 HERE = Path(__file__).resolve().parent
@@ -66,7 +71,9 @@ class Unit:
 
 @dataclass
 class Context:
-    """What one run has: its cell, inputs, the program's GRMs and units."""
+    """What one run has: its cell, the panel, the traits, the set-up
+    product and the units.  A family keeps what else its units need as
+    attributes of its own (the REMMA families: `xmat`, `heads`)."""
 
     cell: dict
     config: dict
@@ -77,10 +84,9 @@ class Context:
     prefix: str = ""
     geno: torch.Tensor | None = None
     fam_ids: list = field(default_factory=list)
-    heads: list = field(default_factory=list)
-    xmat: np.ndarray | None = None
-    traits: np.ndarray | None = None
-    gmat_lst: list = field(default_factory=list)
+    traits: object = None  # the pool, one entry a trait
+    product: object = None  # the side's set-up product (REMMA: the GRMs)
+    part_inputs: object = None  # a `part` mix's trait's input files
     units: list = field(default_factory=list)
     setup: dict = field(default_factory=dict)
     setup_s: float = 0.0
@@ -106,17 +112,9 @@ class Context:
         return self.traffic.get("kind", "AA")
 
     @property
-    def ordered(self):
-        """Whether the kind's pairs are ordered (AD)."""
-        return R.KINDS[self.kind][2]
-
-    def anchors(self, part=None):
-        """The anchors of an exhaustive unit: all of them, or those of
-        part `part` of the mix's split."""
-        if part is None:
-            return R.all_anchors(self.n_snp, self.ordered)
-        return R.part_anchors(self.n_snp, self.traffic["parts"], part,
-                              self.ordered)
+    def family(self):
+        """The mix's scan family, the module `families/<family>.py`."""
+        return load_family(self.traffic["family"])
 
     @property
     def done(self):
@@ -142,6 +140,11 @@ def find(bench, cell_name):
     return cell, configs[cell["config"]]
 
 
+def load_family(name):
+    """The module `families/<name>.py`."""
+    return importlib.import_module(f"benchmark.families.{name}")
+
+
 def load_reader(name):
     """The `read(ctx)` function of `metrics/<name>.py`."""
     path = HERE / "metrics" / f"{name}.py"
@@ -162,7 +165,8 @@ def _timed(split, key, fn, device):
 
 
 def make_inputs(ctx):
-    """The panel, its PLINK files and the pool of traits, from the seed."""
+    """The panel and its PLINK files, then the family's traits
+    (`inputs(ctx)`), from the seed."""
     cfg, dev = ctx.config, ctx.device
     panel = cfg["panel"]
     ctx.prefix = str(ctx.work / "panel")
@@ -179,32 +183,21 @@ def make_inputs(ctx):
         generate.write_plink(ctx.prefix, ctx.geno, ctx.fam_ids)
     if (ctx.n_id, ctx.n_snp) != (cfg["n_id"], cfg["n_snp"]):
         raise ValueError("the panel's shape is not the configuration's")
-    cov = cfg["phenotype"].get("covariates")
-    if cov:
-        ids, toks, ctx.xmat = generate.read_covariates(str(HERE / cov))
-        if ids != ctx.fam_ids:
-            raise ValueError("covariate ids differ from the panel's")
-    else:
-        toks = [["1"]] * ctx.n_id
-        ctx.xmat = np.ones((ctx.n_id, 1))
-    ctx.heads = generate.pheno_lines(ctx.fam_ids, toks)
-    ctx.traits = generate.phenotypes(
-        ctx.geno, ctx.xmat, cfg["phenotype"], ctx.seed, ctx.traffic["pool"])
+    ctx.family.inputs(ctx)
 
 
 def trait_order(ctx, log=sys.stderr):
     """The warm-up trait and the window's traits of a `trait` mix: the
-    pool's last trait, then the others in turn; under `"boundary"` an
-    interior trait, then per block of `of` traits one of the pool's
-    boundary traits at each position in `at` and an interior one at the
-    others, each kind in pool order and cycled."""
+    pool's last trait, then the others in turn; under `"boundary"` a trait
+    that the family does not flag, then per block of `of` traits one of
+    the pool's flagged traits at each position in `at` and one of the
+    others at the rest, each kind in pool order and cycled."""
     pool = ctx.traffic["pool"]
     ctx.warm_trait, ctx.order = pool - 1, list(range(pool - 1))
     spec = ctx.traffic.get("boundary")
     if spec is None:
         return
-    flags = generate.at_boundary(ctx.geno, ctx.xmat, ctx.traits,
-                                 ctx.config["model"]["grms"])
+    flags = ctx.family.boundary(ctx)
     inner = [t for t in range(pool) if not flags[t]]
     outer = [t for t in range(pool) if flags[t]]
     print(f"traits at the boundary: {len(outer)} of {pool}", file=log)
@@ -219,25 +212,27 @@ def trait_order(ctx, log=sys.stderr):
 
 
 def run_unit(ctx, program, index, trait, part, var=None):
-    """One unit of the mix: (phenotype file and REML, or the set-up's
-    variances) and the scan, timed by spans."""
+    """One unit of the mix: (the trait's input files and REML, or the
+    set-up's variances) and the scan, timed by spans ("pheno", "reml" and
+    the family's name)."""
     unit = Unit(index=index, trait=trait, part=part,
                 start=time.perf_counter())
     tag = f"u{index}" if index >= 0 else "warm"
+    family = ctx.family
     try:
         if part is None:
-            pheno = str(ctx.work / f"{tag}.pheno")
             t0 = time.perf_counter()
-            generate.write_pheno(pheno, ctx.heads, ctx.traits[trait])
+            inputs = family.write_inputs(ctx, trait, str(ctx.work / tag))
             t1 = time.perf_counter()
-            var = program.reml(ctx, trait, pheno, str(ctx.work / f"{tag}.var"))
+            var = program.reml(ctx, trait, inputs,
+                               str(ctx.work / f"{tag}.var"))
             t2 = time.perf_counter()
             unit.spans["pheno"] = (t0, t1)
             unit.spans["reml"] = (t1, t2)
         else:
-            pheno = str(ctx.work / "trait.pheno")
+            inputs = ctx.part_inputs
         t0 = time.perf_counter()
-        unit.out, unit.stages = program.scan(ctx, trait, pheno, var,
+        unit.out, unit.stages = program.scan(ctx, trait, inputs, var,
                                              str(ctx.work / f"{tag}.scan"),
                                              part)
         unit.spans[ctx.traffic["family"]] = (t0, time.perf_counter())
@@ -246,8 +241,7 @@ def run_unit(ctx, program, index, trait, part, var=None):
         unit.error = f"{type(exc).__name__}: {exc}"
         print(f"unit {index} failed: {unit.error}", file=sys.stderr)
     unit.end = time.perf_counter()
-    if ctx.traffic["family"] == "exhaustive":
-        unit.pairs = R.pair_count(ctx.anchors(part), ctx.n_snp, ctx.ordered)
+    unit.pairs = family.pairs(ctx, part)
     return unit
 
 
@@ -258,15 +252,15 @@ def setup(ctx, program, t_process):
     split["import"] = time.perf_counter() - t_process
     _timed(split, "library", program.build, dev)
     _timed(split, "inputs", lambda: make_inputs(ctx), dev)
-    ctx.gmat_lst = _timed(split, "grms", lambda: program.grms(ctx), dev)
+    ctx.product = _timed(split, "product", lambda: program.setup(ctx), dev)
     if ctx.traffic["unit"] == "trait":
         _timed(split, "order", lambda: trait_order(ctx), dev)
     var = None
     if ctx.traffic["unit"] == "part":
-        pheno = str(ctx.work / "trait.pheno")
-        generate.write_pheno(pheno, ctx.heads, ctx.traits[0])
+        ctx.part_inputs = ctx.family.write_inputs(ctx, 0,
+                                                  str(ctx.work / "trait"))
         var = _timed(split, "reml", lambda: program.reml(
-            ctx, 0, pheno, str(ctx.work / "trait.var")), dev)
+            ctx, 0, ctx.part_inputs, str(ctx.work / "trait.var")), dev)
         rng = np.random.default_rng([ctx.seed, 2])
         ctx.part0 = int(rng.integers(0, ctx.traffic["parts"]))
         warm = (ctx.part0 - 1) % ctx.traffic["parts"] + 1  # the part before
@@ -347,10 +341,10 @@ def run_cell(bench, cell_name, seed, seconds, trace_on, device="cuda",
     config = config or load_json(ROOT / cfg_entry["file"])
     traffic = traffic or load_json(HERE / "traffic" / f"{cell['traffic']}.json")
     dev = torch.device(device)
-    program = program_cls(dev)
     with tempfile.TemporaryDirectory(prefix="gmat_bench_") as work:
         ctx = Context(cell=cell, config=config, traffic=traffic, seed=seed,
                       device=dev, work=Path(work))
+        program = program_cls.make(ctx.family, dev)
         var = setup(ctx, program, t_process)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -359,9 +353,10 @@ def run_cell(bench, cell_name, seed, seconds, trace_on, device="cuda",
         if prof is not None:
             ctx.trace = trace.collect(prof, ctx)
         info = device_info(ctx, cell)
+        work_bytes = sum(f.stat().st_size for f in ctx.work.iterdir())
         for unit in ctx.done:
             if isinstance(unit.out, str):
-                unit.out = read_rows(unit.out)
+                unit.out = ctx.family.read(unit.out)
     found = forbidden_modules()
     if found:
         raise SystemExit("modules loaded that the port must not load: "
@@ -382,6 +377,7 @@ def run_cell(bench, cell_name, seed, seconds, trace_on, device="cuda",
         info["window_s"] = ctx.trace.window_s
         result["breakdown"] = ctx.trace.breakdown(ctx)
     print(f"setup split (s): {json.dumps(ctx.setup)}", file=log)
+    print(f"work dir bytes at the window's end: {work_bytes}", file=log)
     print("unit seconds: " + " ".join(f"{u.end - u.start:.3f}"
                                       for u in ctx.units), file=log)
     spans = {}

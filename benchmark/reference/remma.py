@@ -219,15 +219,16 @@ def all_anchors(num_snp, ordered=False):
 def exact_scan(mat0, mat1, py, pmat, anchors, p_cut, ordered=False):
     """Rows (i, j, eff, var, chi, p) of the pairs of `anchors` (j > i,
     or with `ordered` (AD) every partner) with chi > chi_crit(p_cut),
-    every pair tested."""
+    every pair tested; at a p_cut of 1 or more, every pair whose chi is
+    not NaN (the whole table)."""
     pairs = rectangle_pairs if ordered else triangle_pairs
     i, j = pairs(anchors, mat0.shape[1])
-    crit = chi2_crit(p_cut)
+    crit = chi2_crit(p_cut) if p_cut < 1.0 else None
     keep = [[] for _ in range(6)]
     for s in range(0, len(i), 8 * PAIR_BLOCK):
         bi, bj = i[s:s + 8 * PAIR_BLOCK], j[s:s + 8 * PAIR_BLOCK]
         stats = pair_stats(mat0, mat1, py, pmat, bi, bj)
-        hit = stats[2] > crit
+        hit = ~np.isnan(stats[2]) if crit is None else stats[2] > crit
         for col, x in zip(keep, (bi, bj) + stats):
             col.append(x[hit])
     return tuple(np.concatenate(c) for c in keep)

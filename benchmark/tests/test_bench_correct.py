@@ -7,12 +7,12 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import harness
+from benchmark import check, harness
 from benchmark.program import Control
 from benchmark.tests.conftest import small
 
 CELLS = ("yeast.approx_aa", "yeast.exact_aa_parts", "mouse.exact_aa",
-         "yeast.approx_ad")
+         "yeast.approx_ad", "mouse.fulltable_aa")
 
 
 def run(bench, cell, program_cls=harness.Program, seed=2**33 + 11):
@@ -58,6 +58,25 @@ def exact_hit_altered(monkeypatch):
     monkeypatch.setattr(kernels, "exact_hits", broken)
 
 
+def exact_top_hit_altered(monkeypatch):
+    """The exact-scan kernel returns the eff of its strongest hit (largest
+    |eff|) off by a part in 1e6: in a full table the first hit may be a
+    null pair whose eff is all but zero."""
+    from gmat_tpu_torch.scan import kernels
+
+    real = kernels.exact_hits
+
+    def broken(*args, **kw):
+        i, j, eff, var, chi = real(*args, **kw)
+        eff = eff.clone()
+        if len(eff):
+            top = int(torch.argmax(torch.abs(eff)))
+            eff[top] *= 1.0 + 1e-6
+        return i, j, eff, var, chi
+
+    monkeypatch.setattr(kernels, "exact_hits", broken)
+
+
 def exact_half_dropped(monkeypatch):
     """The exact-scan kernel returns only the first half of its hits."""
     from gmat_tpu_torch.scan import kernels
@@ -69,6 +88,16 @@ def exact_half_dropped(monkeypatch):
         return tuple(t[: (len(t) + 1) // 2] for t in out)
 
     monkeypatch.setattr(kernels, "exact_hits", broken)
+
+
+def exact_hit_dropped(monkeypatch):
+    """The exact-scan kernel drops its first hit: one row of a full table
+    missing."""
+    from gmat_tpu_torch.scan import kernels
+
+    real = kernels.exact_hits
+    monkeypatch.setattr(kernels, "exact_hits", lambda *a, **kw: tuple(
+        t[1:] for t in real(*a, **kw)))
 
 
 def screen_hit_dropped(monkeypatch):
@@ -140,6 +169,8 @@ FAULTS = [
     ("yeast.approx_ad", ad_rows_transposed),
     ("yeast.approx_ad", dominance_as_additive),
     ("yeast.approx_ad", ad_sweep_dropped),
+    ("mouse.fulltable_aa", exact_hit_dropped),
+    ("mouse.fulltable_aa", exact_top_hit_altered),
 ]
 
 
@@ -173,3 +204,53 @@ def test_cells_on_the_card(bench, cell):
     res, checks = harness.run_cell(bench, cell, 2**33 + 17, 2.0, False)
     assert res["correct"], checks
 
+
+def test_a_full_table_reads_finite_gaps(bench, monkeypatch):
+    """At p_cut 1 every tested pair is a row: a sound run's row_gap is a
+    finite rounding gap, and a run with one row dropped reads 1, not the
+    inf or NaN of a division by chi_crit = 0; its statistics' gaps are
+    floored at their columns' medians, where the plain relative gap reads
+    the rounding of the table's smallest |eff|."""
+    import math
+
+    cell = "mouse.fulltable_aa"
+    config, traffic = small(cell, bench)
+    assert traffic["args"]["p_cut"] == 1.0
+    seen = {}
+    real = check.run
+
+    def spy(ctx, log):
+        seen["ctx"] = ctx
+        return real(ctx, log)
+
+    monkeypatch.setattr(check, "run", spy)
+    _, sound = run(bench, cell)
+    m = config["n_snp"]
+    assert all(len(u.out["i"]) == m * (m - 1) // 2 for u in seen["ctx"].done)
+    exact_hit_dropped(monkeypatch)
+    _, dropped = run(bench, cell)
+    assert math.isfinite(sound["row_gap"]["value"])
+    assert sound["row_gap"]["value"] <= sound["row_gap"]["limit"]
+    assert dropped["row_gap"]["value"] == 1.0
+
+
+def test_floored_gaps_leave_a_near_zero_value_out():
+    """A gap relative to a value all but zero reads its rounding; floored
+    at the median of its column it reads the gap at the column's scale."""
+    want = np.array([1.0, 2.0, 1e-9])
+    got = want + 1e-15
+    assert check.rel_gap(got, want) == pytest.approx(1e-6)
+    assert check.rel_gap(got, want, floor=True) == pytest.approx(1e-15)
+
+
+def test_set_gap_without_a_threshold():
+    """A pair on one side only reads its relative distance from a positive
+    threshold, as before, and 1 where the threshold is 0 (p_cut 1) or NaN
+    (p_cut over 1)."""
+    got = (np.array([0, 0, 1]), np.array([1, 2, 2]))
+    want = (np.array([0, 0]), np.array([1, 2]))
+    chi = np.array([5.0, 7.0, 2.5])
+    assert check.set_gap(3, got, chi, want, chi[:2], 2.0) == 0.25
+    assert check.set_gap(3, want, chi[:2], want, chi[:2], 0.0) == 0.0
+    assert check.set_gap(3, got, chi, want, chi[:2], 0.0) == 1.0
+    assert check.set_gap(3, got, chi, want, chi[:2], float("nan")) == 1.0

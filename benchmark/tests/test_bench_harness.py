@@ -12,7 +12,7 @@ import sys
 import pytest
 
 from benchmark import harness, roofline
-from benchmark.tests.conftest import HERE, ROOT, load, small
+from benchmark.tests.conftest import HERE, ROOT, load, small, worker_threads
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -127,7 +127,8 @@ def test_result_line_and_new_files_alone(tmp_path, bench):
         "                                 1.0, bool(t), device='cpu')\n"
         "    print(json.dumps(list(checks)))\n"
         "    print(json.dumps(r))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS=str(worker_threads()))
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          capture_output=True, text=True, env=env,
                          timeout=600)
@@ -199,7 +200,8 @@ def test_other_kinds_and_dominance_grms_are_files_alone(tmp_path, bench,
         "                                 program_cls=cls)\n"
         "    print(json.dumps([r['correct'], r['attempted'],\n"
         "                      {k: v['value'] for k, v in checks.items()}]))\n")
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT),
+               OMP_NUM_THREADS=str(worker_threads()))
     out = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
                          capture_output=True, text=True, env=env,
                          timeout=600)
