@@ -17,15 +17,21 @@
    `product turns` line);
 4. holds the exact-scan kernel against its plain version for AA, AD and DD
    at a ragged shape with an unsorted anchor subset, with a threshold, a
-   zero-hit threshold and keep-all;
+   zero-hit threshold and keep-all; then the float64 inverse that REML and
+   the scans' pieces take on a card (`inverse_phase`) at n = 4,168 and
+   1,304: the leaf kernel on every 64-row diagonal block against its plain
+   version, `spd_inverse_logdet` against torch.linalg.inv and torch's
+   Cholesky inverse at 1e-12 relative, one launch per leaf, and its time
+   beside the library's (the `inverse` line);
 5. runs the complete mouse exact-scan tables (tests/data/plink) through
    remma_epiAA/AD/DD and holds them against the reference's
    tests/golden/epi_full.npz at tests/test_full_table.py's tolerances;
 6. runs the README's four-step REMMAX workflow through the package's entry
    points at the yeast shape on a seeded PLINK set of full-sib families:
    agmat -> wemai_multi_gmat -> remma_epiAA_approx -> annotation_snp_pos,
-   and checks that the screen kernels ran and that the result table is
-   right;
+   and checks that the screen kernels ran, that REML launched the
+   inverse's leaves of every iteration (its graph's replays included) and
+   that the result table is right;
 7. on the same set, one part of the exhaustive scan's balanced split,
    remma_epiAA_parallel(parallel=[100, 1]) (301 anchors, 3,981,889 pairs),
    held against the plain version and the approx table, and timed beside
@@ -150,6 +156,9 @@ EXACT_RTOL = 1e-9  # exact-scan eff/var/chi, kernel vs plain (both float64)
 # the tensor cores, float64 on the tensor cores (34e12 on the CUDA cores),
 # TF32 on the tensor cores, and the HBM3 rate
 FP32_PEAK, FP64_PEAK, TF32_PEAK, HBM_RATE = 67e12, 67e12, 495e12, 3.35e12
+FP64_CORE_PEAK = 34e12  # float64 on the CUDA cores (the inverse's leaf)
+INVERSE_NS = (4168, 1304)  # V's rows at the yeast and the mouse panel
+INVERSE_RTOL = 1e-12  # the card's inverse vs torch.linalg.inv, relative
 # the screen kernels' SASS functions, each of which must hold TF32
 # tensor-core instructions (HGMMA ... TF32)
 SCREEN_KERNELS = ("screen_count_kernel", "screen_extract_kernel",
@@ -406,10 +415,11 @@ def product_turns(K, yeast):
     counts' totals inside the case's f64 bracket."""
     import torch
 
+    from gmat_tpu_torch.core import native
     from gmat_tpu_torch.probe import screen_product_turns
 
     mat, py = panel(*YEAST, seed=1)
-    out_dir = K._BUILD_DIR / "probe"
+    out_dir = native._BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     ms, counts = screen_product_turns(mat, py, yeast["cut"], YEAST[1],
                                       out_dir)
@@ -677,6 +687,113 @@ def exact_timing(K, mat, pvp, py, anchors, crit, center):
         "pvp_max_asym": float((pvp - pvp.T).abs().max())}
 
 
+def spd_matrix(n, seed):
+    """A symmetric positive-definite float64 (n, n) on the card, r rᵀ/n + I
+    for r standard normal."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = torch.randn(n, n, generator=g, dtype=torch.float64, device="cuda")
+    return r @ r.T / n + torch.eye(n, dtype=torch.float64, device="cuda")
+
+
+def inverse_phase():
+    """The float64 inverse on the card at V's sizes (`INVERSE_NS`): the
+    leaf kernel on each 64-row diagonal block of the matrix against its
+    plain version (`spd_leaf_inverse_ref`, on the card), one launch per
+    leaf; `spd_inverse_logdet` against torch.linalg.inv (relative to the
+    largest entry, at INVERSE_RTOL), torch's Cholesky inverse and slogdet,
+    one launch per leaf of the recursion; its device time beside the
+    library's inverses and the parent's cholesky_solve(I).  Returns the
+    `inverse` line's record and the leaf kernel's row of the kernels line
+    (its time, plain and library times at one 64 x 64 leaf)."""
+    import torch
+
+    from gmat_tpu_torch.core import native
+    from gmat_tpu_torch.core.linalg import spd_inverse_logdet
+    from gmat_tpu_torch.probe import cuda_ms
+
+    b, launches = native.SPD_LEAF, native.LEAF_LAUNCHES
+    record, leaf_err, leaf_rel = {}, 0.0, 0.0
+    for n in INVERSE_NS:
+        a = spd_matrix(n, n)
+        out = torch.empty_like(a)
+        logdets = torch.empty(-(-n // b), dtype=a.dtype, device="cuda")
+        orders = torch.empty(len(logdets), dtype=torch.int32, device="cuda")
+        before = launches["spd_leaf_inverse"]
+        for k, r0 in enumerate(range(0, n, b)):
+            blk = slice(r0, min(r0 + b, n))
+            native.spd_leaf_inverse(a[blk, blk], out[blk, blk], logdets[k],
+                                    orders[k], r0)
+        torch.cuda.synchronize()
+        check(launches["spd_leaf_inverse"] - before == len(logdets),
+              f"inverse leaves at n={n}: "
+              f"{launches['spd_leaf_inverse'] - before} launches")
+        check(not bool(orders.any()), f"inverse leaves at n={n}: a leaf "
+              "read as not positive definite")
+        for k, r0 in enumerate(range(0, n, b)):
+            blk = slice(r0, min(r0 + b, n))
+            inv, ld, first = native.spd_leaf_inverse_ref(a[blk, blk])
+            err = float((out[blk, blk] - inv).abs().max())
+            leaf_err = max(leaf_err, err)
+            leaf_rel = max(leaf_rel, err / float(inv.abs().max()),
+                           abs(float(logdets[k] - ld)) / max(1.0, abs(float(ld))))
+            check(first == 0, f"plain leaf {k} at n={n}: order {first}")
+        check(leaf_rel <= INVERSE_RTOL, f"inverse leaves at n={n}: "
+              f"{leaf_rel:.3e} from their plain version")
+
+        before = launches["spd_leaf_inverse"]
+        inv, logdet, info = spd_inverse_logdet(a)
+        want = torch.linalg.inv(a)
+        chol = torch.linalg.cholesky(a)
+        want_chol = torch.cholesky_inverse(chol)
+        want_ld = float(torch.linalg.slogdet(a)[1])
+        torch.cuda.synchronize()
+        check(launches["spd_leaf_inverse"] - before == len(logdets),
+              f"spd_inverse_logdet at n={n}: "
+              f"{launches['spd_leaf_inverse'] - before} leaf launches")
+        scale = float(want.abs().max())
+        gap = float((inv - want).abs().max()) / scale
+        gap_chol = float((inv - want_chol).abs().max()) / scale
+        gap_ld = abs(float(logdet) - want_ld) / max(1.0, abs(want_ld))
+        check(int(info) == 0, f"spd_inverse_logdet at n={n}: info {int(info)}")
+        check(max(gap, gap_chol, gap_ld) <= INVERSE_RTOL,
+              f"spd_inverse_logdet at n={n}: {gap:.3e} from inv, "
+              f"{gap_chol:.3e} from cholesky_inverse, logdet {gap_ld:.3e}")
+        eye = torch.eye(n, dtype=a.dtype, device="cuda")
+        # the least work: ≈ n³/3 FMA of a Cholesky factorization and 2n³/3
+        # of its inverse (potrf + potri), on the FP64 tensor cores
+        ms_bound, bound_by = bound(2.0 * n ** 3, 16 * n * n, FP64_PEAK)
+        record[n] = {
+            "max_rel_err": gap, "max_rel_err_cholesky_inverse": gap_chol,
+            "logdet_rel_err": gap_ld, "leaves": len(logdets),
+            "ms": cuda_ms(lambda: spd_inverse_logdet(a)),
+            "inv_ms": cuda_ms(lambda: torch.linalg.inv(a)),
+            "cholesky_inverse_ms": cuda_ms(
+                lambda: torch.cholesky_inverse(torch.linalg.cholesky(a))),
+            "cholesky_solve_eye_ms": cuda_ms(
+                lambda: torch.cholesky_solve(eye, torch.linalg.cholesky(a))),
+            "bound_ms": ms_bound, "bound_by": bound_by}
+        del a, out, inv, want, chol, want_chol, eye
+        torch.cuda.empty_cache()
+    record["leaf_max_rel_err"] = leaf_rel
+    a = spd_matrix(b, 1)
+    out = torch.empty_like(a)
+    logdet = torch.empty((), dtype=a.dtype, device="cuda")
+    order = torch.empty((), dtype=torch.int32, device="cuda")
+    _, plain_ms = timed(lambda: native.spd_leaf_inverse_ref(a))
+    # b³ FMA on the CUDA cores; b x b doubles read and written
+    ms_bound, bound_by = bound(2.0 * b ** 3, 16 * b * b, FP64_CORE_PEAK)
+    leaf = {"max_abs_err": leaf_err,
+            "ms": cuda_ms(lambda: native.spd_leaf_inverse(a, out, logdet,
+                                                          order, 0), reps=9),
+            "plain_ms": plain_ms,
+            "bound_ms": ms_bound, "bound_by": bound_by,
+            "library_ms": cuda_ms(lambda: torch.linalg.inv(a), reps=9)}
+    record["leaf_64"] = leaf
+    return record, leaf
+
+
 def assert_table(tab, gold, kind, m):
     """tests/test_full_table.py::_assert_table: a complete mouse table
     against the reference's (eff/chi/p stored float32, a float64 subset)."""
@@ -830,6 +947,8 @@ def main_path(K, workdir):
     from gmat_tpu_torch import (agmat, annotation_snp_pos, random_pair,
                                 remma_epiAA_approx, remma_epiAA_pair,
                                 wemai_multi_gmat)
+    from gmat_tpu_torch.core import native
+    from gmat_tpu_torch.io.pheno import design_matrix
     from gmat_tpu_torch.scan import screen as screen_mod
     from gmat_tpu_torch.scan.common import (coded_matrix,
                                             design_matrix_cached,
@@ -858,10 +977,20 @@ def main_path(K, workdir):
     reml_log = RemlLog()
     logging.getLogger("gmat_tpu_torch.reml.wemai").addHandler(reml_log)
     logging.getLogger("gmat_tpu_torch.reml.wemai").setLevel(logging.INFO)
+    native.LEAF_LAUNCHES["spd_leaf_inverse"] = 0
     var_com = wemai_multi_gmat(pheno, prefix, gmat_lst,
                                out_file=str(workdir / "var.txt"))
     times["wemai_multi_gmat"] = time.perf_counter() - t0
-    print(f"REML: {reml_log.rounds} iterations, {reml_log.status}", flush=True)
+    reml_leaves = native.LEAF_LAUNCHES["spd_leaf_inverse"]
+    print(f"REML: {reml_log.rounds} iterations, {reml_log.status}, "
+          f"{reml_leaves} inverse leaves", flush=True)
+    # V's leaves and XᵀV⁻¹X's, every iteration's, those that ran as a graph
+    # replay too
+    dm = design_matrix(pheno, prefix)
+    per_step = sum(-(-k // native.SPD_LEAF) for k in dm.xmat.shape)
+    check(reml_leaves == reml_log.rounds * per_step,
+          f"REML launched {reml_leaves} inverse leaves in "
+          f"{reml_log.rounds} iterations")
     check(reml_log.status == "Variances converged.", "REML did not converge")
     check(np.all(np.isfinite(var_com)) and np.all(var_com > 0),
           f"wemai_multi_gmat: variances {var_com}")
@@ -881,7 +1010,7 @@ def main_path(K, workdir):
     t0 = time.perf_counter()
     annotation_snp_pos(out, prefix, p_cut=1e-5)
     times["annotation_snp_pos"] = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = {**K.LAUNCHES, "spd_leaf_inverse (REML)": reml_leaves}
     print(f"main-path launches {json.dumps(launches)}", flush=True)
     for key in FOUR_STEP_KERNELS:
         check(launches[key] > 0, f"the main path never launched kernel {key}")
@@ -3032,6 +3161,7 @@ def main():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
     sys.path.insert(0, str(ROOT))
     from gmat_tpu_torch.bench import card_line
+    from gmat_tpu_torch.core import native
     from gmat_tpu_torch.probe import sass_opcodes
     from gmat_tpu_torch.scan import kernels as K
 
@@ -3087,6 +3217,10 @@ def main():
     t0 = time.perf_counter()
     exact_err = exact_phase(K)
     phase_s["exact_kernel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    inverse, leaf = inverse_phase()
+    phase_s["inverse"] = time.perf_counter() - t0
+    print(f"inverse on {gpu_line}: {json.dumps(inverse)}", flush=True)
 
     build = ROOT / "build" / "chip_smoke"
     build.mkdir(parents=True, exist_ok=True)
@@ -3109,10 +3243,11 @@ def main():
         phase_s["screen_family"] = time.perf_counter() - t0
         for key in K.LAUNCHES:
             K.LAUNCHES[key] = 0
+        native.LEAF_LAUNCHES["spd_leaf_inverse"] = 0
         t0 = time.perf_counter()
         uvlmm_times = uvlmm_phase(ctx)
         phase_s["uvlmm"] = time.perf_counter() - t0
-        uvlmm_launches = dict(K.LAUNCHES)
+        uvlmm_launches = {**K.LAUNCHES, **native.LEAF_LAUNCHES}
         for key in K.LAUNCHES:
             K.LAUNCHES[key] = 0
         t0 = time.perf_counter()
@@ -3136,8 +3271,8 @@ def main():
     print(f"screen-family launches {json.dumps(family_launches)}", flush=True)
     print(f"main-path step times (s): {json.dumps(times)}", flush=True)
     print(f"uvlmm launches {json.dumps(uvlmm_launches)} (dense f64 "
-          "linear algebra on cuBLAS/cuSOLVER: no hand kernel on this path)",
-          flush=True)
+          "linear algebra on cuBLAS/cuSOLVER, and the inverse's leaves in "
+          "the REMLs' V⁻¹: no scan kernel on this path)", flush=True)
     print(f"uvlmm step times (s) {json.dumps(uvlmm_times)}", flush=True)
     check(not any(long_launches.values()),
           f"the longwas phase launched a hand kernel: {long_launches}")
@@ -3191,6 +3326,10 @@ def main():
          "ms": part["ms"], "plain_ms": part["plain_ms"],
          "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
          "library_ms": part["library_ms"]},
+        {"name": "spd_leaf_inverse", "route": "cuda",
+         "source": "gmat_tpu_torch/csrc/linalg.cu",
+         "replaces": "gmat_tpu/core/linalg.py:14",
+         "launches": launches["spd_leaf_inverse (REML)"], **leaf},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line, flush=True)

@@ -263,6 +263,7 @@ def bench_reml_mixed(rng, device, n_id=REML[0], n_rec=REML[1], m=REML[2],
     and on the host CPU (one step), each after a warm-up step; every step's
     variances go through the host, as `wemai_reml` iterates.  Returns
     (device s/iter, host s/iter)."""
+    from gmat_tpu_torch.core.linalg import not_positive_definite
     from gmat_tpu_torch.reml.wemai import _reml_step
 
     geno = rng.binomial(2, rng.uniform(0.1, 0.9, size=m)[None, :],
@@ -272,6 +273,18 @@ def bench_reml_mixed(rng, device, n_id=REML[0], n_rec=REML[1], m=REML[2],
     y = rng.standard_normal(n_rec)
     xmat = np.column_stack([np.ones(n_rec), rng.standard_normal(n_rec)])
     var0 = np.array([0.5, 0.3, 0.5, 1.0])
+
+    def step(var, y_d, x_d, zg):
+        """The next variances on the host; raises, as `wemai_reml` does,
+        where V or XᵀV⁻¹X is not positive definite (a card's step only
+        returns its factorizations' `info`)."""
+        out = _reml_step(var, y_d, x_d, zg)
+        var_new = out[0].cpu().numpy()
+        if out[5] is not None:
+            for order in out[5].tolist():
+                if order:
+                    raise not_positive_definite(order)
+        return var_new
 
     def run(dev, steps):
         g32 = torch.as_tensor(geno, device=dev)
@@ -285,12 +298,11 @@ def bench_reml_mixed(rng, device, n_id=REML[0], n_rec=REML[1], m=REML[2],
         del g32, mcen, ag, pe
         y_d = torch.as_tensor(y, device=dev)
         x_d = torch.as_tensor(xmat, device=dev)
-        _reml_step(torch.as_tensor(var0, device=dev), y_d, x_d, zg)[0].cpu()
+        step(torch.as_tensor(var0, device=dev), y_d, x_d, zg)
         t0 = time.perf_counter()
         var = torch.as_tensor(var0, device=dev)
         for _ in range(steps):
-            out = _reml_step(var, y_d, x_d, zg)
-            var = torch.as_tensor(out[0].cpu().numpy(), device=dev)
+            var = torch.as_tensor(step(var, y_d, x_d, zg), device=dev)
         return (time.perf_counter() - t0) / steps
 
     dev_iter = run(device, reps)

@@ -46,6 +46,7 @@ from pathlib import Path
 
 import torch
 
+from gmat_tpu_torch.core import native
 from gmat_tpu_torch.scan import kernels as K
 from gmat_tpu_torch.scan.pairs import balanced_anchor_split
 
@@ -203,7 +204,7 @@ def _build(name, source, out_dir):
 def sass_opcodes(lib, prefix):
     """{function: {opcode: count}} of the opcodes starting with `prefix` in
     the SASS of the shared library `lib` (cuobjdump beside nvcc)."""
-    tool = Path(K._nvcc()).parent / "cuobjdump"
+    tool = Path(native._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     return {fn.split("\n", 1)[0].strip():
@@ -266,7 +267,7 @@ def _variant(name, text, subs, out_dir, fn):
 
 
 def exact_variants(out_dir):
-    src = (K._CSRC / "exact.cu").read_text()
+    src = (native._CSRC / "exact.cu").read_text()
     libs = {name: _variant(f"exact_{name}", src, subs, out_dir,
                            "gmat_exact_scan")
             for name, subs in _VARIANTS.items()}
@@ -349,7 +350,7 @@ def screen_variants(out_dir):
     rows = torch.randperm(m, generator=gen, device="cuda")[:256]
     s = ((mat[:, rows] * py[:, None]).T @ mat).abs().flatten()
     cut = float(torch.quantile(s, 1.0 - 1e5 / (m * (m - 1) / 2)))
-    src = (K._CSRC / "screen.cu").read_text()
+    src = (native._CSRC / "screen.cu").read_text()
     libs = {name: _variant(f"screen_{name}", src, subs, out_dir,
                            "gmat_screen_count")
             for name, subs in _SCREEN_VARIANTS.items()}
@@ -366,7 +367,7 @@ def main():
     from gmat_tpu_torch.bench import card_line
 
     print(card_line(torch.device("cuda", 0)), flush=True)
-    out_dir = K._BUILD_DIR / "probe"
+    out_dir = native._BUILD_DIR / "probe"
     out_dir.mkdir(parents=True, exist_ok=True)
     shapes(out_dir)
     exact_variants(out_dir)

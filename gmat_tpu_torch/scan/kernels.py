@@ -43,22 +43,21 @@ Each wrapper takes its plain PyTorch version (`screen_tile_counts_ref`,
 `screen_extract_ref`, `exact_hits_ref`) for a tensor on the CPU; for a CUDA
 tensor it launches the kernel or raises.  `screen_hits_ref` is the plain
 version of the whole screen.  The kernels are built from `csrc/*.cu` at
-first use (one nvcc process per source, all started together, then one
-link) into one library under `build/gmat_tpu_torch/`, loaded through
-ctypes.
+first use into one library (`core.native`), loaded through ctypes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from dataclasses import dataclass
-from pathlib import Path
 
 import torch
+
+from gmat_tpu_torch.core.native import (build_library,  # noqa: F401
+                                        compile_sources, declare)
+from gmat_tpu_torch.core.native import launch_args as _launch_args
+from gmat_tpu_torch.core.native import library as _library
+from gmat_tpu_torch.core.native import raise_on as _raise_on
 
 TILE = 128  # the screen's tile edge; checked against the library at load
 TILE_BAND = 8  # partner tiles per band of a screen launch's tile order
@@ -70,66 +69,6 @@ _REF_BLOCK_ELEMS = 1 << 25  # elements of E per step of `exact_hits_ref`
 #: launch from several threads: `_count_launch` holds the lock)
 LAUNCHES = {"screen_count": 0, "screen_extract": 0, "exact_scan": 0}
 _LOCK = threading.Lock()
-_LIB_LOCK = threading.Lock()
-
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gmat_tpu_torch"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-
-_lib = None
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return str(Path(home) / "bin" / "nvcc")
-
-
-def compile_sources(srcs, out: Path) -> str:
-    """Build the sources `srcs` into the shared library `out`: one nvcc per
-    source, all started together, then one link.  Returns the compilers'
-    output; raises with it when a step fails."""
-    tag = f"{out.name}.{os.getpid()}"
-    objs = [out.parent / f"{p.stem}.{tag}.o" for p in srcs]
-    procs = [subprocess.Popen([_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(o),
-                               str(p)], stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for p, o in zip(srcs, objs)]
-    logs = [f"== {p.name}\n{proc.communicate()[0]}"
-            for p, proc in zip(srcs, procs)]
-    link = None
-    if all(proc.returncode == 0 for proc in procs):
-        link = subprocess.run([_nvcc(), *_NVCC_FLAGS[:2], "-shared", "-o",
-                               str(out), *map(str, objs)],
-                              capture_output=True, text=True)
-        logs.append(f"== link\n{link.stdout}{link.stderr}")
-    for o in objs:
-        o.unlink(missing_ok=True)
-    if link is None or link.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + "".join(logs))
-    return "".join(logs)
-
-
-def build_library() -> Path:
-    """Compile every `csrc/*.cu` into one shared library named by the hash
-    of the sources and flags (a no-op when that library exists), by
-    `compile_sources`.  The compilers' output, with ptxas's register and
-    shared-memory report, goes to the `.log` file beside it."""
-    srcs = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(b"".join(
-        [p.name.encode() + p.read_bytes() for p in srcs]
-        + [" ".join(_NVCC_FLAGS).encode()])).hexdigest()
-    out = _BUILD_DIR / f"libgmat_kernels_{digest[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    out.with_suffix(".log").write_text(compile_sources(srcs, tmp))
-    os.replace(tmp, out)
-    return out
 
 
 def _count_launch(name):
@@ -137,18 +76,8 @@ def _count_launch(name):
         LAUNCHES[name] += 1
 
 
-def _library():
-    """The kernels' library, built and loaded at first use (under a lock:
-    the shard threads of a mesh may ask for it at once)."""
-    global _lib
-    with _LIB_LOCK:
-        if _lib is None:
-            _lib = _load_library()
-    return _lib
-
-
-def _load_library():
-    lib = ctypes.CDLL(str(build_library()))
+@declare
+def _declare_scans(lib):
     vp, i32, i64, f32, f64 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_int64, ctypes.c_float,
                               ctypes.c_double)
@@ -180,7 +109,6 @@ def _load_library():
     edge = lib.gmat_exact_tile()
     if edge != EXACT_TILE:
         raise RuntimeError(f"exact-scan tile {edge} != {EXACT_TILE}")
-    return lib
 
 
 @dataclass(frozen=True)
@@ -254,15 +182,6 @@ def _check(mat, py, m, cut, b, ids):
 
 def _n_tiles(m, tile=TILE):
     return -(-m // tile)
-
-
-def _launch_args(t):
-    return t.device.index, torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc, name):
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {rc}")
 
 
 def _n_anchors(m, ids):

@@ -96,3 +96,48 @@ def test_sym_trace_product_matches_jax(spd):
     w = np.linalg.inv(v)
     _close(tlinalg.sym_trace_product(_t(v), _t(w)),
            jlinalg.sym_trace_product(jnp.asarray(v), jnp.asarray(w)))
+
+
+# V⁻¹ on a card comes from recursive Schur complements with leaves of at most
+# SPD_LEAF rows; on the CPU the same recursion runs with the leaves' plain
+# version, which holds its splits, offsets and orders here
+
+def _spd_t(n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n))
+    return _t(a @ a.T / n + np.eye(n))
+
+
+@pytest.mark.parametrize("n", [1, 31, 64, 65, 130, 200])
+def test_spd_inverse_logdet_matches_inv_on_the_cpu(n):
+    a = _spd_t(n, n)
+    inv, logdet, info = tlinalg.spd_inverse_logdet(a)
+    want = torch.linalg.inv(a)
+    assert float((inv - want).abs().max() / want.abs().max()) <= 1e-12
+    _close(logdet, torch.linalg.slogdet(a)[1])
+    assert info.dtype == torch.int32 and int(info) == 0
+
+
+@pytest.mark.parametrize("bad", [0, 63, 64, 150, 199])
+def test_spd_inverse_logdet_finds_the_first_bad_minor_on_the_cpu(bad):
+    a = _spd_t(200, 5)
+    a[bad, bad] = -5.0
+    a[min(bad + 7, 199), min(bad + 7, 199)] = -5.0  # a later one as well
+    want = int(torch.linalg.cholesky_ex(a)[1])
+    assert want == bad + 1
+    assert int(tlinalg.spd_inverse_logdet(a)[2]) == want
+    # the error a card raises from that order reads as the CPU's
+    with pytest.raises(torch.linalg.LinAlgError) as was:
+        tlinalg.chol_inv_logdet(a)
+    assert str(was.value) == str(tlinalg.not_positive_definite(want))
+
+
+@pytest.mark.parametrize("b", [1, 17, 64])
+def test_spd_leaf_inverse_ref_matches_inv(b):
+    from gmat_tpu_torch.core.native import spd_leaf_inverse_ref
+    a = _spd_t(b, 40 + b)
+    inv, logdet, order = spd_leaf_inverse_ref(a)
+    _close(inv, torch.linalg.inv(a), rtol=1e-11, atol=1e-13)
+    _close(logdet, torch.linalg.slogdet(a)[1])
+    assert order == 0
+

@@ -136,6 +136,10 @@ def test_the_tree_under_a_profiler(off, work, grms):
     reml, approx, exact = roots
     assert _children(recs, reml) == ["reml.parse", "reml.zgzt",
                                      "reml.iterate", "reml.write"]
+    # the CPU runs REML's step eagerly: no iteration is a graph replay
+    loop = next(r for r in recs if r.name == "reml.iterate")
+    assert set(loop.counts) == {"iterations", "at_limit", "replays"}
+    assert loop.counts["iterations"] >= 1 and loop.counts["replays"] == 0
     assert _children(recs, approx) == [f"approx.{s}" for s in STAGES]
     stage = {r.name[len("approx."):]: r for r in recs
              if r.parent == approx.id}
@@ -214,7 +218,7 @@ def test_reml_counts_iterations_and_the_limit(off, work, grms):
                          maxiter=3, out_file=str(work / "var"), device="cpu")
     it = [r for r in new_spans(before) if r.name == "reml.iterate"]
     assert len(it) == 1
-    assert it[0].counts == {"iterations": 3, "at_limit": 1}
+    assert it[0].counts == {"iterations": 3, "at_limit": 1, "replays": 0}
 
 
 def test_grm_uploads_count_twice_a_trait(off, work, grms):

@@ -4,7 +4,7 @@
     python3 tools/time_torch_build.py [--reps 2]
 
 "one_call": a single `nvcc -shared -o lib.so csrc/*.cu`;
-"parallel": `kernels.compile_sources`, one nvcc per source, all started
+"parallel": `native.compile_sources`, one nvcc per source, all started
 together, then one link (what `build_library` runs).  Both use the
 package's flags and build cold into a scratch directory under build/, in
 the order one_call, parallel, parallel, one_call per repetition.  Prints
@@ -24,11 +24,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from gmat_tpu_torch.scan import kernels as K  # noqa: E402
+from gmat_tpu_torch.core import native  # noqa: E402
 
 
 def one_call(srcs, out):
-    run = subprocess.run([K._nvcc(), *K._NVCC_FLAGS, "-shared", "-o",
+    run = subprocess.run([native._nvcc(), *native._NVCC_FLAGS, "-shared", "-o",
                           str(out), *map(str, srcs)],
                          capture_output=True, text=True)
     if run.returncode != 0:
@@ -43,7 +43,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
     print(smi.stdout.strip() or "no nvidia-smi", flush=True)
-    srcs = sorted(K._CSRC.glob("*.cu"))
+    srcs = sorted(native._CSRC.glob("*.cu"))
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     times = {"one_call": [], "parallel": []}
@@ -56,7 +56,7 @@ def main():
                 if name == "one_call":
                     one_call(srcs, out)
                 else:
-                    K.compile_sources(srcs, out)
+                    native.compile_sources(srcs, out)
                 times[name].append(time.perf_counter() - t0)
     print(json.dumps({"sources": [p.name for p in srcs], "seconds": times}),
           flush=True)
